@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch port's serving path on one NVIDIA GPU and checks it.
+"""Runs the PyTorch port's serving and evaluation paths on one NVIDIA GPU and
+checks them.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (a non-zero exit):
 
 1. device   - the card's name and power limit; TF32 off for the comparisons;
-2. build    - compiles the path's CUDA kernel from ``src/repro_torch/kernels/
-              csrc`` into ``build/``;
+2. build    - compiles both CUDA kernels from ``src/repro_torch/kernels/csrc``
+              into ``build/``, one nvcc per source, started together;
 3. kernels  - each kernel's wrapper against its plain PyTorch version on the
-              card, at the serving path's shape and at edge cases, with times
-              of the kernel, the plain version, the PyTorch library call that
-              computes the same function, and the card's bound;
+              card, at its path's shape and at edge cases, with times of the
+              kernel, the plain version, the PyTorch library call that
+              computes the same function (where one exists) and the card's
+              bound;
 4. serve    - full-width, full-depth internlm2-1.8b (random weights from a
               seed, bf16 compute, attention_impl="flash") serves 16 requests
-              through BatchAccumulator and ServeEngine; the kernel's launch
-              count over that run must be 24 per prefill batch; prefill logits
-              through the kernel are held against the same port with
-              attention_impl="xla", and a SMOKE model on the card against the
-              same model on the CPU;
-5. launcher - ``repro_torch.launch.serve.main`` with its defaults.
+              through BatchAccumulator and ServeEngine; flash_attention must
+              launch 24 times per prefill batch; prefill logits through the
+              kernel are held against the same port with attention_impl="xla",
+              and a SMOKE model on the card against the same model on the CPU;
+5. evaluate - full-width, full-depth zamba2-7b (81 Mamba2 layers, weights
+              drawn from seed 0, f32 params, bf16 compute, "flash") runs
+              make_eval_step on 2 batches of 8 x 512 tokens; mamba_scan must
+              launch 81 times per batch; forward logits through the kernel are
+              held against the same port with "xla" (ssd_chunked); one batch is
+              profiled;
+6. serve zamba2 - the same model serves 16 requests with no kernel launch, and
+              a zamba2 SMOKE model on the card is held against the CPU;
+7. launcher - ``repro_torch.launch.serve.main`` for internlm2-1.8b and zamba2-7b.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -41,7 +50,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # f32: the reference's own tolerance (tests/kernels/test_kernels.py:20-21); bf16:
-# both sides read the same bf16 inputs, compute in f32 and round the output once
+# both sides read the same bf16 inputs, compute in f32 and round the output
+# once, so they differ by the f32 rounding plus one bf16 step of the output
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # Prefill logits through the kernel against the same port through attend_xla
 # (relative L2).  In f32 at full depth the two differ only in summation order.
@@ -54,6 +64,15 @@ PREFILL_SHALLOW_BF16_TOL = 2e-2
 SHALLOW_LAYERS = 1
 # SMOKE model, f32, card vs CPU (kernel vs plain version inside)
 SMOKE_TOL = 1e-4
+# zamba2-7b forward logits through mamba_scan against ssd_chunked (relative
+# L2): f32 at full depth, where the two differ only in summation order; bf16 at
+# the first super-block (6 Mamba2 layers and one shared application), where
+# each side rounds y to bf16 and a rare flip spreads through the later bf16
+# layers.  The bf16 limit is twice the larger of the port's own flash-vs-xla
+# distances on the CPU at reduced width, 1.67e-2 (d 448) and 1.87e-2 (d 896),
+# from `python tests/test_torch_zamba.py`.
+EVAL_F32_TOL = 1e-3
+SUPERBLOCK_BF16_TOL = 3.75e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -173,6 +192,133 @@ def check_attention_kernel() -> dict:
     return record
 
 
+# name, dtype, B, S, H, P, N, chunk, dt shift (softplus(randn + shift)), strided
+SSD_SLICE = ("slice", "bfloat16", 8, 512, 112, 64, 64, 128, 0.0, True)
+SSD_EDGE_CASES = [
+    ("slice_f32", "float32", 8, 512, 112, 64, 64, 128, 0.0, True),
+    ("ragged100", "bfloat16", 2, 100, 16, 64, 64, 128, 0.0, True),
+    ("ragged200", "bfloat16", 2, 200, 16, 64, 64, 128, 0.0, True),
+    ("s_lt_chunk", "bfloat16", 2, 50, 16, 64, 64, 128, 0.0, True),
+    ("chunk16", "bfloat16", 2, 256, 16, 64, 64, 16, 0.0, True),
+    ("chunk32", "bfloat16", 2, 256, 16, 64, 64, 32, 0.0, True),
+    ("chunk64", "bfloat16", 2, 256, 16, 64, 64, 64, 0.0, True),
+    # the four shapes of tests/kernels/test_kernels.py:98-103, f32, contiguous
+    ("jax_case1", "float32", 2, 64, 2, 8, 16, 16, 0.0, False),
+    ("jax_case2", "float32", 1, 128, 4, 16, 8, 32, 0.0, False),
+    ("jax_case3", "float32", 2, 96, 1, 8, 8, 32, 0.0, False),
+    ("jax_case4", "float32", 1, 64, 2, 64, 64, 64, 0.0, False),
+    ("smoke_f32", "float32", 4, 37, 16, 8, 8, 16, 0.0, True),
+    ("batch1", "bfloat16", 1, 384, 112, 64, 64, 128, 0.0, True),
+    ("strong_decay", "float32", 2, 256, 8, 64, 64, 128, 4.0, True),
+    ("p128_n128", "float32", 1, 160, 4, 128, 128, 64, 0.0, True),
+]
+
+
+def ssd_inputs(case, gen):
+    """xh, dt, A, Bm, Cm on the card.  A differs by head.  With ``strided``,
+    xh, Bm and Cm are views of one [B,S,H*P+2N] tensor, as the model's split
+    of the conv output gives them."""
+    import torch
+    import torch.nn.functional as F
+
+    _, dtype, B, S, H, P, N, _, shift, strided = case
+    dt_ = getattr(torch, dtype)
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device="cuda") + shift)
+    A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
+    if strided:
+        packed = torch.randn(B, S, H * P + 2 * N, generator=gen, device="cuda").to(dt_)
+        xs, Bm, Cm = torch.split(packed, [H * P, N, N], dim=-1)
+        xh = xs.reshape(B, S, H, P)
+    else:
+        xh = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt_)
+        Bm = torch.randn(B, S, N, generator=gen, device="cuda").to(dt_)
+        Cm = torch.randn(B, S, N, generator=gen, device="cuda").to(dt_)
+    return xh, dt, A, Bm, Cm
+
+
+def ssd_bound_ms(case) -> tuple[float, str]:
+    """Least time for the scan: xh read and y written, dt, A, B and C read once,
+    at the HBM rate; or the least arithmetic at the inputs' peak: C B^T once per
+    (batch, chunk), 2 Q^2 P (intra) + 4 Q P N (inter and state) per (batch,
+    head, chunk); whichever is larger."""
+    import torch
+
+    _, dtype, B, S, H, P, N, chunk, _, _ = case
+    esize = torch.finfo(getattr(torch, dtype)).bits // 8
+    nbytes = esize * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + H)
+    nc = -(-S // chunk)
+    flops = B * nc * (2 * chunk * chunk * N + H * (2 * chunk * chunk * P + 4 * chunk * P * N))
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def scan_tolerance(dtype: str, expected) -> dict:
+    """bf16: rtol = atol = 2e-2 per element.  f32: rtol 2e-5, atol 2e-5 times
+    the RMS of the reference (at least 1): both sides sum in f32 in other
+    orders, and a sum's rounding grows with the size of its terms (RMS|y| is
+    about 10 at the slice shape, a few units at the reference's test shapes)."""
+    if dtype == "bfloat16":
+        return {"rtol": TOL[dtype], "atol": TOL[dtype]}
+    rms = expected.float().square().mean().sqrt().item()
+    return {"rtol": TOL[dtype], "atol": TOL[dtype] * max(1.0, rms)}
+
+
+def check_mamba_kernel() -> dict:
+    """mamba_scan against mamba_scan_ref at the slice shape and edge cases;
+    prints each case's max|err|, RMS|ref| and margin (the largest
+    |err| / (atol + rtol |ref|), at most 1 to pass)."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+    from repro_torch.models import ssm
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    record = {}
+    for case in [SSD_SLICE] + SSD_EDGE_CASES:
+        name, dtype, B, S, H, P, N, chunk, shift, strided = case
+        xh, dt, A, Bm, Cm = ssd_inputs(case, gen)
+        out = ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        expected, _ = ref.mamba_scan_ref(xh, dt, A, Bm, Cm)
+        check(out.dtype == xh.dtype and out.shape == xh.shape, f"{name}: bad output")
+        check(bool(torch.isfinite(out.float()).all()), f"mamba_scan {name}: not finite")
+        tol = scan_tolerance(dtype, expected)
+        diff = (out.float() - expected.float()).abs()
+        err = diff.max().item()
+        rms = expected.float().square().mean().sqrt().item()
+        margin = (diff / (tol["atol"] + tol["rtol"] * expected.float().abs())).max().item()
+        print(f"  mamba_scan {name:12s} {dtype:8s} B{B} S{S} H{H} P{P} N{N} chunk{chunk} "
+              f"dt shift {shift} strided={strided}: max|err| {err:.3e}, RMS|ref| {rms:.3e}, "
+              f"max|ref| {expected.float().abs().max().item():.3e}, rtol {tol['rtol']}, "
+              f"atol {tol['atol']:.3e}, margin {margin:.3f}")
+        torch.testing.assert_close(out.float(), expected.float(), **tol,
+                                   msg=lambda m, n=name: f"mamba_scan {n}: {m}")
+        if case is SSD_SLICE:
+            record = {"max_abs_err": err}
+            record["ms"] = time_ms(lambda: ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=chunk))
+            record["plain_ms"] = time_ms(lambda: ref.mamba_scan_ref(xh, dt, A, Bm, Cm),
+                                         iters=5, warmup=1)
+            # the comparison yardstick: the port's own eager chunked SSD, the
+            # non-kernel route ("xla"); no single PyTorch call computes the scan
+            chunked = ssm.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+            torch.testing.assert_close(chunked.float(), expected.float(), **tol)
+            record["ssd_chunked_ms"] = time_ms(lambda: ssm.ssd_chunked(xh, dt, A, Bm, Cm, chunk))
+            record["bound_ms"], record["bound_by"] = ssd_bound_ms(case)
+            print(f"  slice shape: kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} "
+                  f"ms, eager ssd_chunked {record['ssd_chunked_ms']:.4f} ms, bound "
+                  f"{record['bound_ms']:.4f} ms ({record['bound_by']})")
+    # the wrapper refuses a chunk whose tiles do not fit in shared memory
+    xh, dt, A, Bm, Cm = ssd_inputs(SSD_EDGE_CASES[-1], gen)
+    try:
+        ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=128)
+    except ValueError:
+        print("  mamba_scan refuses chunk 128 at P = N = 128")
+    else:
+        raise RuntimeError("mamba_scan accepted chunk 128 at P = N = 128")
+    return record
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serving
 # ---------------------------------------------------------------------------
@@ -248,25 +394,32 @@ def profile_serving(model, params, tokens, max_len: int, steps: int = 8) -> None
             model.decode_step(params, tokens[:, -1:], cache, S + i) for i in range(steps)])
 
 
-def serve(n_requests: int = 16, max_new: int = 32) -> int:
-    """Drives the main path; returns the kernel's launches during it."""
+def launch_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+
+    return {"flash_attention": fa.flash_attention.launches,
+            "mamba_scan": ms.mamba_scan.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+
+    fa.flash_attention.launches = 0
+    ms.mamba_scan.launches = 0
+
+
+def serve_requests(model, params, n_requests: int, max_new: int):
+    """16 requests with prompts of 128-512 tokens through BatchAccumulator and
+    ServeEngine at batch 8.  Prints tok/s, prefill ms per batch and decode ms
+    per step; returns (batches, kernel launches during the run, prompts)."""
     import numpy as np
     import torch
 
-    from repro_torch import configs
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.model import Model
     from repro_torch.serve.engine import BatchAccumulator, ServeEngine
 
-    cfg = configs.get("internlm2-1.8b").replace(attention_impl="flash")
-    check(cfg.compute_dtype == "bfloat16", "expected bf16 compute")
-    model = Model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda")
-    torch.cuda.synchronize()
-    print(f"  internlm2-1.8b: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.param_count() / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
-
+    cfg = model.cfg
     prefill_s, decode_s = [], []
     model.prefill = _timed(model.prefill, prefill_s)
     model.decode_step = _timed(model.decode_step, decode_s)
@@ -285,18 +438,15 @@ def serve(n_requests: int = 16, max_new: int = 32) -> int:
     decode_s.clear()
     engine.stats = dict.fromkeys(engine.stats, 0)
 
-    fa.flash_attention.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     results = accum.flush(max_new_tokens=max_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.flash_attention.launches
+    launches = launch_counts()
 
     batches = engine.stats["batches"]
     check(len(results) == n_requests, f"served {len(results)} of {n_requests}")
-    check(launches == cfg.n_layers * batches,
-          f"flash_attention launched {launches} times, want "
-          f"{cfg.n_layers} x {batches} prefill batches")
     for r in results:
         toks = np.asarray(r["tokens"])
         check(toks.shape == (max_new,), f"bad token shape {toks.shape}")
@@ -304,18 +454,53 @@ def serve(n_requests: int = 16, max_new: int = 32) -> int:
     tokens = engine.stats["tokens_generated"]
     print(f"  served {len(results)} requests in {batches} batches (prompt lengths "
           f"{int(lengths.min())}-{int(lengths.max())}), {tokens} tokens in {wall:.3f} s: "
-          f"{tokens / wall:.1f} tok/s; flash_attention launches {launches}")
+          f"{tokens / wall:.1f} tok/s; kernel launches {launches}")
     print(f"  prefill ms per batch: {[round(1e3 * s, 3) for s in prefill_s]}; decode ms "
           f"per token step (median of {len(decode_s)}): "
           f"{1e3 * float(np.median(decode_s)):.3f}")
+    del model.prefill, model.decode_step
+    return batches, launches, prompts
 
-    # prefill logits of the first batch through the kernel and through
-    # attend_xla, at full depth in f32 and bf16 and at the first layer in bf16
-    width = int(lengths[:8].max())
+
+def first_batch(prompts):
+    """The first 8 prompts, left-padded to the longest, on the card."""
+    import numpy as np
+    import torch
+
+    width = max(len(p) for p in prompts[:8])
     batch = np.zeros((8, width), np.int64)
     for i, p in enumerate(prompts[:8]):
         batch[i, width - len(p):] = p
-    tokens_t = torch.as_tensor(batch, device="cuda")
+    return torch.as_tensor(batch, device="cuda")
+
+
+def serve(n_requests: int = 16, max_new: int = 32) -> int:
+    """Drives internlm2-1.8b's serving path; returns flash_attention's launches
+    during it."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+
+    cfg = configs.get("internlm2-1.8b").replace(attention_impl="flash")
+    check(cfg.compute_dtype == "bfloat16", "expected bf16 compute")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"  internlm2-1.8b: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
+
+    batches, counts, prompts = serve_requests(model, params, n_requests, max_new)
+    launches = counts["flash_attention"]
+    check(launches == cfg.n_layers * batches,
+          f"flash_attention launched {launches} times, want "
+          f"{cfg.n_layers} x {batches} prefill batches")
+
+    # prefill logits of the first batch through the kernel and through
+    # attend_xla, at full depth in f32 and bf16 and at the first layer in bf16
+    tokens_t = first_batch(prompts)
+    width = tokens_t.shape[1]
     logits = {}
     runs = [(cfg.n_layers, "float32"), (cfg.n_layers, "bfloat16"), (SHALLOW_LAYERS, "bfloat16")]
     with torch.inference_mode():
@@ -375,6 +560,156 @@ def smoke_card_vs_cpu() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 5-6: zamba2-7b evaluation and serving
+# ---------------------------------------------------------------------------
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def zamba_model():
+    """zamba2-7b at full width and depth on the card, its weights redrawn from
+    seed 0 by repro_torch.testing.redraw_params_."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    from repro_torch.testing import redraw_params_
+
+    cfg = configs.get("zamba2-7b").replace(attention_impl="flash")
+    check(cfg.compute_dtype == "bfloat16" and cfg.param_dtype == "float32",
+          "expected f32 params, bf16 compute")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+    redraw_params_(params, seed=0)
+    torch.cuda.synchronize()
+    print(f"  zamba2-7b: {cfg.n_layers} Mamba2 layers, d {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    return model, params
+
+
+def evaluate(model, params, n_batches: int = 2, B: int = 8, S: int = 512) -> int:
+    """make_eval_step over ``n_batches`` batches of B x S tokens (labels shifted
+    by one); returns mamba_scan's launches during them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import make_eval_step
+
+    cfg = model.cfg
+    eval_step = make_eval_step(model)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (n_batches, B, S + 1))
+    batches = [{"tokens": torch.as_tensor(t[:, :-1], device="cuda"),
+                "labels": torch.as_tensor(t[:, 1:], device="cuda")} for t in tokens]
+    eval_step(params, batches[0])  # set-up (cuBLAS handles, the kernel library's load)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(eval_step(params, batch)["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    print(f"  eval {n_batches} batches of {B} x {S} tokens: ms per batch "
+          f"{[round(1e3 * t, 3) for t in times]}, loss {losses}; kernel launches {launches}")
+    check(all(np.isfinite(losses)), f"eval loss not finite: {losses}")
+    check(launches["mamba_scan"] == cfg.n_layers * n_batches,
+          f"mamba_scan launched {launches['mamba_scan']} times, want "
+          f"{cfg.n_layers} x {n_batches} batches")
+
+    # forward logits of the first batch through the kernel and through
+    # ssd_chunked: f32 and bf16 at full depth, bf16 at the first super-block
+    superblock = cfg.zamba.shared_period
+    logits = {}
+    with torch.inference_mode():
+        for n_layers, dtype in ((cfg.n_layers, "float32"), (cfg.n_layers, "bfloat16"),
+                                (superblock, "bfloat16")):
+            for impl in ("xla", "flash"):
+                run = Model(cfg.replace(n_layers=n_layers, compute_dtype=dtype,
+                                        attention_impl=impl))
+                out, _ = run.forward(params, batches[0])
+                check(bool(torch.isfinite(out).all()), f"{impl} {dtype} logits not finite")
+                logits[impl, n_layers, dtype] = out.float()
+                del out
+    full = cfg.n_layers
+    rel_f32 = rel_l2(logits["flash", full, "float32"], logits["xla", full, "float32"])
+    rel_sb = rel_l2(logits["flash", superblock, "bfloat16"], logits["xla", superblock, "bfloat16"])
+    print(f"  forward logits, flash vs xla (relative L2): f32 at {full} layers {rel_f32:.3e} "
+          f"(tol {EVAL_F32_TOL}); bf16 at the first super-block ({superblock} layers) "
+          f"{rel_sb:.3e} (tol {SUPERBLOCK_BF16_TOL})")
+    xla32 = logits["xla", full, "float32"]
+    print(f"  bf16 at {full} layers, not checked (relative L2): flash vs xla "
+          f"{rel_l2(logits['flash', full, 'bfloat16'], logits['xla', full, 'bfloat16']):.3e}; "
+          f"from the f32 xla run: flash "
+          f"{rel_l2(logits['flash', full, 'bfloat16'], xla32):.3e}, xla "
+          f"{rel_l2(logits['xla', full, 'bfloat16'], xla32):.3e}")
+    check(rel_f32 <= EVAL_F32_TOL, f"flash f32 logits differ from xla f32: {rel_f32}")
+    check(rel_sb <= SUPERBLOCK_BF16_TOL,
+          f"flash bf16 logits at the first super-block differ from xla bf16: {rel_sb}")
+    del logits, xla32
+    _profile("eval (1 batch)", lambda: eval_step(params, batches[0]))
+    return launches["mamba_scan"]
+
+
+def serve_zamba(model, params, n_requests: int = 16, max_new: int = 32) -> None:
+    """Serving runs no kernel: prefill is ssd_chunked, decode the single-step
+    recurrence, the shared block attend_xla (head_dim 112)."""
+    _, launches, prompts = serve_requests(model, params, n_requests, max_new)
+    check(launches == {"flash_attention": 0, "mamba_scan": 0},
+          f"zamba2 serving launched kernels: {launches}")
+    profile_serving(model, params, first_batch(prompts), max_len=512 + max_new)
+
+
+def zamba_smoke_card_vs_cpu() -> None:
+    """A zamba2 SMOKE model in f32 on the card against the same weights on the
+    CPU: forward logits (the kernel against its plain version inside), prefill
+    logits and every cache leaf, and 4 decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.testing import redraw_params_
+
+    cfg = configs.get("zamba2-7b", smoke=True).replace(compute_dtype="float32",
+                                                       attention_impl="flash")
+    model = Model(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0), device="cpu")
+    redraw_params_(params, seed=0)
+    gpu_params = L.map_tree(lambda t: t.cuda(), params)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 41)))
+    prompt, max_len = tokens[:, :37], 41
+    tol = dict(rtol=SMOKE_TOL, atol=SMOKE_TOL)
+    before = launch_counts()["mamba_scan"]
+    with torch.inference_mode():
+        cpu_fwd, _ = model.forward(params, {"tokens": prompt})
+        gpu_fwd, _ = model.forward(gpu_params, {"tokens": prompt.cuda()})
+        check(launch_counts()["mamba_scan"] == before + cfg.n_layers,
+              "SMOKE forward on the card did not launch mamba_scan once per layer")
+        torch.testing.assert_close(gpu_fwd.cpu(), cpu_fwd, **tol)
+        cpu_logits, cpu_cache = model.prefill(params, {"tokens": prompt}, max_len)
+        gpu_logits, gpu_cache = model.prefill(gpu_params, {"tokens": prompt.cuda()}, max_len)
+        torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, **tol)
+        for key in ("groups", "tail", "shared"):
+            for leaf in cpu_cache[key]:
+                torch.testing.assert_close(gpu_cache[key][leaf].cpu(), cpu_cache[key][leaf], **tol)
+        for pos in range(37, 41):
+            new = tokens[:, pos:pos + 1]
+            cpu_logits, cpu_cache = model.decode_step(params, new, cpu_cache, pos)
+            gpu_logits, gpu_cache = model.decode_step(gpu_params, new.cuda(), gpu_cache, pos)
+            torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, **tol)
+    print(f"  zamba2 SMOKE, card vs CPU (f32): forward, prefill logits and caches, "
+          f"4 decode steps agree within {SMOKE_TOL}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -398,35 +733,57 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    report = build.build("flash_attention")
-    print(f"  flash_attention: {'built' if report else 'cached'} in "
+    reports = build.build("flash_attention", "mamba_scan")
+    print(f"  built {[name for name, rep in reports.items() if rep]} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  flash_attention: {line.strip()}")
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  {name}: {line.strip()}")
 
     print("== kernels vs plain versions")
     attn = check_attention_kernel()
+    ssd = check_mamba_kernel()
 
-    print("== serve")
-    launches = serve()
+    print("== serve internlm2-1.8b")
+    fa_launches = serve()
     smoke_card_vs_cpu()
+    torch.cuda.empty_cache()  # the internlm2 weights are freed before zamba2's
+
+    print("== evaluate zamba2-7b")
+    model, params = zamba_model()
+    ms_launches = evaluate(model, params)
+
+    print("== serve zamba2-7b")
+    serve_zamba(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    zamba_smoke_card_vs_cpu()
 
     print("== launcher")
     from repro_torch.launch.serve import main as serve_main
 
-    check(serve_main([]) == 0, "launcher failed")
+    for argv in ([], ["--arch", "zamba2-7b"]):
+        check(serve_main(argv) == 0, f"launcher failed for {argv}")
 
-    kernel = {
+    kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
-        "launches": launches, "max_abs_err": attn["max_abs_err"],
+        "launches": fa_launches, "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
         "library_ms": attn["library_ms"],
-    }
-    print(json.dumps({"kernels": [kernel]}))
+    }, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:82",
+        "launches": ms_launches, "max_abs_err": ssd["max_abs_err"],
+        "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+        "library_ms": None, "ssd_chunked_ms": ssd["ssd_chunked_ms"],
+    }]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,21 +43,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.  Returns
-    nvcc's ptxas report (registers, shared memory, spills), empty when nothing
-    was compiled; raises if the compile fails."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a reader never sees a half-written library
-    return proc.stdout
+def build(*names: str) -> dict[str, str]:
+    """Compile ``csrc/<name>.cu`` for each name whose library is not built yet,
+    one nvcc per source, all started together.  Returns nvcc's ptxas report
+    (registers, shared memory, spills) by name, empty where nothing was
+    compiled; raises if a compile fails, after stopping the others."""
+    reports = dict.fromkeys(names, "")
+    jobs = {}
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists() or name in jobs:
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, out)
+        for name, (proc, tmp, out) in jobs.items():
+            reports[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{reports[name]}")
+            os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+    finally:
+        for proc, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

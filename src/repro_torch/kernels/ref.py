@@ -1,7 +1,8 @@
 """Plain PyTorch oracles for the hand-written kernels (the correctness contract).
 
-Line-for-line counterpart of ``repro/kernels/ref.py``; only the attention
-oracle is ported so far (see ROADMAP.md for the others).
+Line-for-line counterpart of ``repro/kernels/ref.py``; the attention and SSD
+scan oracles are ported, the grouped-matmul ones come with ``gmm`` (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,3 +37,31 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def mamba_scan_ref(
+    xh: torch.Tensor,   # [B, S, H, P]
+    dt: torch.Tensor,   # [B, S, H] (softplus'd)
+    A: torch.Tensor,    # [H] (negative)
+    Bm: torch.Tensor,   # [B, S, N]
+    Cm: torch.Tensor,   # [B, S, N]
+    h0: torch.Tensor | None = None,  # [B, H, P, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Literal sequential SSD recurrence, one step at a time, in f32.
+
+    Returns y [B, S, H, P] in xh's dtype and the final state [B, H, P, N] f32.
+    """
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    h = h0.to(f32) if h0 is not None else torch.zeros((Bsz, H, P, N), dtype=f32,
+                                                      device=xh.device)
+    A = A.to(f32)
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t].to(f32)
+        decay = torch.exp(dt_t * A[None, :])
+        dBx = torch.einsum("bh,bn,bhp->bhpn", dt_t, Bm[:, t].to(f32), xh[:, t].to(f32))
+        h = decay[..., None, None] * h + dBx
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].to(f32), h))
+    return torch.stack(ys, dim=1).to(xh.dtype), h

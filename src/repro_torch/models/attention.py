@@ -90,9 +90,10 @@ def attend(cfg: ModelConfig, q, k, v, **kw) -> torch.Tensor:
     return attend_xla(q, k, v, **kw)
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
-    """Zeroed KV cache for every layer, stacked ``[n_layers, batch, max_len, K, D]``."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+def init_kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, dtype, device):
+    """Zeroed KV caches stacked ``[n, batch, max_len, K, D]``: one per layer of
+    a dense stack, one per application of zamba2's shared block."""
+    shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),

@@ -183,3 +183,22 @@ def apply_mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     else:
         h = F.gelu(apply_dense(params["up"], x), approximate="tanh")
     return apply_dense(params["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# Softmax cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token loss in f32.  logits [..., V]; labels int [...]; the
+    optional mask weights each position (the mean over its sum, at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -3,12 +3,14 @@
     model = Model(config)
     params = model.init(generator, device="cuda")
     logits, aux = model.forward(params, batch)
+    loss = model.loss(params, batch)
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, tokens, cache, position)
 
-Counterpart of ``repro/models/model.py`` for the ``dense`` and ``vlm``
-families (``batch``: tokens [B,S], and pixel_embeds [B,K,D] for vlm).  The
-other families raise NotImplementedError until their slice is ported.
+Counterpart of ``repro/models/model.py`` for the ``dense``, ``vlm`` and
+``hybrid`` (zamba2) families.  ``batch``: tokens [B,S] (and labels [B,S],
+optionally loss_mask [B,S], for ``loss``), plus pixel_embeds [B,K,D] for vlm.
+The other families raise NotImplementedError until their slice is ported.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -33,6 +35,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 def init_spec(cfg: ModelConfig):
     _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return tfm.init_zamba(cfg)
     return tfm.init_lm(cfg)
 
 
@@ -61,17 +65,32 @@ class Model:
 
     # --------------------------------------------------------------- forward
     def forward(self, params, batch):
+        if self.cfg.family == "hybrid":
+            return tfm.forward_zamba(params, self.cfg, batch["tokens"])
         return tfm.forward_lm(params, self.cfg, batch["tokens"],
                               batch.get("pixel_embeds"))
 
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy in f32 (the MoE aux term comes with
+        the MoE family)."""
+        logits, _ = self.forward(params, batch)
+        return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+
     # --------------------------------------------------------------- serving
     def prefill(self, params, batch, max_len: int):
+        if self.cfg.family == "hybrid":
+            return tfm.prefill_zamba(params, self.cfg, batch["tokens"], max_len)
         return tfm.prefill_lm(params, self.cfg, batch["tokens"], max_len,
                               batch.get("pixel_embeds"))
 
     def init_cache(self, batch_size: int, max_len: int, device=None):
-        return attn_mod.init_kv_cache(self.cfg, batch_size, max_len,
-                                      tfm.compute_dtype(self.cfg), resolve_device(device))
+        cfg, dev = self.cfg, resolve_device(device)
+        if cfg.family == "hybrid":
+            return tfm.init_zamba_cache(cfg, batch_size, max_len, tfm.compute_dtype(cfg), dev)
+        return attn_mod.init_kv_cache(cfg, cfg.n_layers, batch_size, max_len,
+                                      tfm.compute_dtype(cfg), dev)
 
     def decode_step(self, params, tokens_new, cache, position: int):
+        if self.cfg.family == "hybrid":
+            return tfm.decode_zamba(params, self.cfg, tokens_new, cache, position)
         return tfm.decode_lm(params, self.cfg, tokens_new, cache, position)

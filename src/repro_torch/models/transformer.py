@@ -1,10 +1,11 @@
-"""Decoder-only LM assembly, dense (and VLM-prefix) stack.
+"""Decoder-only LM assembly: the dense (and VLM-prefix) stack and zamba2's
+hybrid stack.
 
-Counterpart of the dense part of ``repro/models/transformer.py:82-236``.
+Counterpart of ``repro/models/transformer.py:82-446`` without the MoE FFN.
 Block parameters stay stacked with a leading layer axis ``[L, ...]``, as in
 the reference, so the weight bridge is a copy; the reference's ``lax.scan``
-over that axis becomes a Python loop over layer views.  The MoE, zamba2 and
-xLSTM stacks are later slices (see ROADMAP.md).
+over that axis becomes a Python loop over layer views.  The MoE and xLSTM
+stacks are later slices (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -12,10 +13,12 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import ParamSpec
 
 
@@ -137,7 +140,8 @@ def prefill_lm(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens, pixel_embeds)
     positions = torch.arange(S, device=tokens.device)
-    caches = attn.init_kv_cache(cfg, B, max_len, compute_dtype(cfg), tokens.device)
+    caches = attn.init_kv_cache(cfg, cfg.n_layers, B, max_len, compute_dtype(cfg),
+                                tokens.device)
     for i in range(cfg.n_layers):
         x, _ = apply_block(
             layer_params(params["blocks"], i), cfg, x, positions,
@@ -158,4 +162,193 @@ def decode_lm(params, cfg: ModelConfig, tokens_new: torch.Tensor, caches,
             layer_params(params["blocks"], i), cfg, x, positions,
             cache=layer_params(caches, i), cache_position=position,
         )
+    return lm_logits(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid: Mamba2 backbone + shared attention block with LoRA
+# ---------------------------------------------------------------------------
+
+
+def zamba_structure(cfg: ModelConfig):
+    """(shared applications, Mamba2 layers per application, Mamba2 tail)."""
+    period = cfg.zamba.shared_period
+    n_groups = cfg.n_layers // period
+    tail = cfg.n_layers - n_groups * period
+    return n_groups, period, tail
+
+
+def init_shared_block(cfg: ModelConfig):
+    """The shared transformer block (attention + MLP), applied repeatedly."""
+    return {
+        "attn_norm": L.init_norm(cfg.d_model, cfg.norm_type),
+        "attn": attn.init_attention(cfg),
+        "mlp_norm": L.init_norm(cfg.d_model, cfg.norm_type),
+        "mlp": L.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type),
+    }
+
+
+def init_lora(cfg: ModelConfig, n_apps: int):
+    r = cfg.zamba.lora_rank
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    return {
+        "qkv_a": ParamSpec((n_apps, d, r)),
+        "qkv_b": ParamSpec((n_apps, r, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd), init="zeros"),
+        "mlp_a": ParamSpec((n_apps, d, r)),
+        "mlp_b": ParamSpec((n_apps, r, cfg.d_ff), init="zeros"),
+    }
+
+
+def init_zamba(cfg: ModelConfig):
+    """Params: ``groups`` [n_groups, period, ...], ``tail`` [tail, ...] (when
+    there is one), ``shared`` and per-application ``lora`` [n_groups, ...]."""
+    n_groups, period, tail = zamba_structure(cfg)
+    mamba_spec = {
+        "norm": L.init_norm(cfg.d_model, cfg.norm_type),
+        "mamba": ssm_mod.init_mamba(cfg),
+    }
+    spec = init_lm_shell(cfg)
+    spec["groups"] = stack_specs(stack_specs(mamba_spec, period), n_groups)
+    if tail:
+        spec["tail"] = stack_specs(mamba_spec, tail)
+    spec["shared"] = init_shared_block(cfg)
+    spec["lora"] = init_lora(cfg, n_groups)
+    return spec
+
+
+def _apply_mamba_layer(p, cfg: ModelConfig, x, cache=None, prefill=False):
+    h = L.apply_norm(p["norm"], x, cfg.norm_type, cfg.norm_eps)
+    out, new_cache = ssm_mod.apply_mamba(p["mamba"], cfg, h, cache=cache,
+                                         return_cache=prefill)
+    return x + out, new_cache
+
+
+def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
+                            cache=None, cache_position=None):
+    """Shared attention block; LoRA delta on the fused QKV and MLP-up.
+
+    Attention is always ``attend_xla``, as in the reference
+    (``transformer.py:332,335``): zamba2's head_dim 112 is not one the flash
+    kernel takes.  With a cache, K/V are written into it in place."""
+    hd = cfg.resolved_head_dim
+    nq = cfg.n_heads * hd
+    nk = cfg.n_kv_heads * hd
+    h = L.apply_norm(shared["attn_norm"], x, cfg.norm_type, cfg.norm_eps)
+    # base QKV + low-rank per-application delta
+    delta = (h @ lora_slice["qkv_a"].to(h.dtype)) @ lora_slice["qkv_b"].to(h.dtype)
+    dq, dk, dv = torch.split(delta, [nq, nk, nk], dim=-1)
+    ap = shared["attn"]
+    B, S = h.shape[0], h.shape[1]
+    q = (L.apply_dense(ap["wq"], h) + dq).reshape(B, S, cfg.n_heads, hd)
+    k = (L.apply_dense(ap["wk"], h) + dk).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (L.apply_dense(ap["wv"], h) + dv).reshape(B, S, cfg.n_kv_heads, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        ck[:, cache_position:cache_position + S] = k
+        cv[:, cache_position:cache_position + S] = v
+        T = ck.shape[1]
+        kv_pos = torch.arange(T, device=x.device)
+        valid = (kv_pos[None, :] < cache_position + S).expand(B, T)
+        out = attn.attend_xla(q, ck, cv, causal=True, q_positions=positions,
+                              kv_positions=kv_pos, kv_valid=valid)
+    else:
+        out = attn.attend_xla(q, k, v, causal=True, q_positions=positions,
+                              kv_positions=positions)
+    x = x + L.apply_dense(ap["wo"], out.reshape(B, S, nq))
+    h = L.apply_norm(shared["mlp_norm"], x, cfg.norm_type, cfg.norm_eps)
+    dup = (h @ lora_slice["mlp_a"].to(h.dtype)) @ lora_slice["mlp_b"].to(h.dtype)
+    gate = F.silu(L.apply_dense(shared["mlp"]["gate"], h))
+    up = L.apply_dense(shared["mlp"]["up"], h) + dup
+    return x + L.apply_dense(shared["mlp"]["down"], gate * up)
+
+
+def _mamba_layers(params, cfg: ModelConfig):
+    """Yields ``(g, [(l, layer params), ...])``: the Mamba2 layers before
+    shared application ``g``, in order, then ``(None, ...)`` for the tail."""
+    n_groups, period, tail = zamba_structure(cfg)
+    for g in range(n_groups):
+        group = layer_params(params["groups"], g)
+        yield g, [(l, layer_params(group, l)) for l in range(period)]
+    if tail:
+        yield None, [(l, layer_params(params["tail"], l)) for l in range(tail)]
+
+
+def forward_zamba(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Training/eval forward.  Returns (logits, aux_loss = 0)."""
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for g, layers in _mamba_layers(params, cfg):
+        for _, p in layers:
+            x, _ = _apply_mamba_layer(p, cfg, x)
+        if g is not None:
+            x = _apply_shared_with_lora(params["shared"], layer_params(params["lora"], g),
+                                        cfg, x, positions)
+    return lm_logits(params, cfg, x), torch.zeros((), device=tokens.device)
+
+
+def init_zamba_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+    """Zeroed decode caches: Mamba2 states stacked like the params
+    (``groups`` [n_groups, period, ...], ``tail`` [tail, ...] or None) and one
+    KV cache per shared application, ``shared`` [n_groups, B, max_len, K, D]."""
+    n_groups, period, tail = zamba_structure(cfg)
+    one = ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+
+    def stack(*lead):
+        return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
+
+    return {
+        "groups": stack(n_groups, period),
+        "tail": stack(tail) if tail else None,
+        "shared": attn.init_kv_cache(cfg, n_groups, batch, max_len, dtype, device),
+    }
+
+
+def _layer_cache(caches, g, l):
+    stacked = caches["tail"] if g is None else layer_params(caches["groups"], g)
+    return layer_params(stacked, l)
+
+
+def _store(dst: dict, src: dict) -> None:
+    for key, val in src.items():
+        dst[key].copy_(val)
+
+
+def prefill_zamba(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
+    """Prompt pass building all decode caches (SSM states, conv windows and the
+    shared KV caches).  Returns (logits of the last position, caches)."""
+    B, S = tokens.shape
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    caches = init_zamba_cache(cfg, B, max_len, compute_dtype(cfg), tokens.device)
+    for g, layers in _mamba_layers(params, cfg):
+        for l, p in layers:
+            x, cache = _apply_mamba_layer(p, cfg, x, prefill=True)
+            _store(_layer_cache(caches, g, l), cache)
+        if g is not None:
+            x = _apply_shared_with_lora(params["shared"], layer_params(params["lora"], g),
+                                        cfg, x, positions,
+                                        cache=layer_params(caches["shared"], g),
+                                        cache_position=0)
+    return lm_logits(params, cfg, x[:, -1:, :]), caches
+
+
+def decode_zamba(params, cfg: ModelConfig, tokens_new: torch.Tensor, caches,
+                 position: int):
+    """One decode step.  tokens_new [B,1]; caches updated in place and returned."""
+    x = embed_tokens(params, cfg, tokens_new)
+    positions = torch.full((tokens_new.shape[0], 1), position, dtype=torch.int32,
+                           device=tokens_new.device)
+    for g, layers in _mamba_layers(params, cfg):
+        for l, p in layers:
+            layer_cache = _layer_cache(caches, g, l)
+            x, new_cache = _apply_mamba_layer(p, cfg, x, cache=layer_cache)
+            _store(layer_cache, new_cache)
+        if g is not None:
+            x = _apply_shared_with_lora(params["shared"], layer_params(params["lora"], g),
+                                        cfg, x, positions,
+                                        cache=layer_params(caches["shared"], g),
+                                        cache_position=position)
     return lm_logits(params, cfg, x), caches

@@ -1,6 +1,8 @@
-"""Batched serving engine: prefill + lockstep decode with KV caches.
+"""Batched serving engine: prefill + lockstep decode with KV/state caches.
 
-Counterpart of ``repro/serve/engine.py`` for the attention families.
+Counterpart of ``repro/serve/engine.py`` for every ported family: the
+attention families keep a KV cache, zamba2 its SSM states, conv windows and
+the shared block's KV caches, all behind ``Model.prefill``/``decode_step``.
 Requests are grouped into generation batches (arrival-window batching); each
 batch is prefilled once and decoded in lockstep, with per-row EOS masking.
 Left-pad tokens are attended to, as in the reference.

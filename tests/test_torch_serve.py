@@ -182,7 +182,7 @@ def test_bridge_rejects_mismatched_trees(fault):
         bridge.params_from_jax(tree, tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["internvl2-2b"])
+@pytest.mark.parametrize("arch", ARCHS + ["internvl2-2b", "zamba2-7b"])
 def test_model_init_matches_jax_tree(arch):
     jcfg, tcfg = _cfgs(arch)
     jparams, _ = JaxModel(jcfg).init(jax.random.PRNGKey(0))
