@@ -7,7 +7,7 @@ checks them.
 Phases, each of which raises on failure (a non-zero exit):
 
 1. device   - the card's name and power limit; TF32 off for the comparisons;
-2. build    - compiles both CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build    - compiles the three CUDA kernels from ``src/repro_torch/kernels/csrc``
               into ``build/``, one nvcc per source, started together;
 3. kernels  - each kernel's wrapper against its plain PyTorch version on the
               card, at its path's shape and at edge cases, with times of the
@@ -28,7 +28,16 @@ Phases, each of which raises on failure (a non-zero exit):
               profiled;
 6. serve zamba2 - the same model serves 16 requests with no kernel launch, and
               a zamba2 SMOKE model on the card is held against the CPU;
-7. launcher - ``repro_torch.launch.serve.main`` for internlm2-1.8b and zamba2-7b.
+7. mixtral-8x7b - full width, 8 of its 32 layers (f32 params, weights drawn
+              from seed 0, bf16 compute, "flash"): make_eval_step on 2 batches
+              of 8 x 512 tokens (flash_attention 8 launches a batch, gmm none),
+              16 requests served (flash 8 a prefill batch, gmm none: no model
+              path sets use_gmm, as in the reference), then
+              apply_moe(use_gmm=True) against use_gmm=False on layer 0's real
+              input (gmm 3 launches a call), and a mixtral SMOKE model on the
+              card held against the CPU;
+8. launcher - ``repro_torch.launch.serve.main`` for internlm2-1.8b, zamba2-7b
+              and mixtral-8x7b.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +46,7 @@ It needs CUDA and the repository's ``src/``; without either it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -73,6 +83,21 @@ SMOKE_TOL = 1e-4
 # from `python tests/test_torch_zamba.py`.
 EVAL_F32_TOL = 1e-3
 SUPERBLOCK_BF16_TOL = 3.75e-2
+# mixtral-8x7b at full width and 8 of its 32 layers: 11.87 B params, 47.5 GB in
+# f32, which leaves room on one 80 GB card for the per-call bf16 cast of one
+# layer's experts (2.8 GB) and the eval logits
+MIXTRAL_LAYERS = 8
+# apply_moe(use_gmm=True) against use_gmm=False on the same input: f32 at the
+# reference's own tolerance (tests/kernels/test_kernels.py:190).  bf16
+# (relative L2): the two routes round at the same places and differ only where
+# their f32 sums land on two sides of a bf16 rounding step.  The limit is twice
+# the largest of the port's own distances on the CPU (gmm_ref against the bf16
+# einsums, 8 experts top-2, `python tests/test_torch_moe.py`): 1.96e-4 to
+# 3.48e-4 as the width doubles from d 512 to 2048, 3.83e-4 at d 2048 with the
+# full d_ff 14336 (the down product's sum length) and 3.00e-4 at the full d
+# 4096 with d_ff 3584 (the gate and up sum length).
+GMM_ROUTE_F32_TOL = 2e-4
+GMM_ROUTE_BF16_TOL = 7.7e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -252,11 +277,12 @@ def ssd_bound_ms(case) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
 
 
-def scan_tolerance(dtype: str, expected) -> dict:
+def kernel_tolerance(dtype: str, expected) -> dict:
     """bf16: rtol = atol = 2e-2 per element.  f32: rtol 2e-5, atol 2e-5 times
     the RMS of the reference (at least 1): both sides sum in f32 in other
-    orders, and a sum's rounding grows with the size of its terms (RMS|y| is
-    about 10 at the slice shape, a few units at the reference's test shapes)."""
+    orders, and a sum's rounding grows with the size of its terms (the scan's
+    RMS|y| is about 10 at the slice shape, a few units at the reference's test
+    shapes; gmm's outputs are O(1) with w drawn at std 1/sqrt(D))."""
     if dtype == "bfloat16":
         return {"rtol": TOL[dtype], "atol": TOL[dtype]}
     rms = expected.float().square().mean().sqrt().item()
@@ -283,7 +309,7 @@ def check_mamba_kernel() -> dict:
         expected, _ = ref.mamba_scan_ref(xh, dt, A, Bm, Cm)
         check(out.dtype == xh.dtype and out.shape == xh.shape, f"{name}: bad output")
         check(bool(torch.isfinite(out.float()).all()), f"mamba_scan {name}: not finite")
-        tol = scan_tolerance(dtype, expected)
+        tol = kernel_tolerance(dtype, expected)
         diff = (out.float() - expected.float()).abs()
         err = diff.max().item()
         rms = expected.float().square().mean().sqrt().item()
@@ -317,6 +343,101 @@ def check_mamba_kernel() -> dict:
     else:
         raise RuntimeError("mamba_scan accepted chunk 128 at P = N = 128")
     return record
+
+
+# name, dtype, E, C, D, F, Ew.  The timed cases: mixtral-8x7b's eval gate/up
+# and down (8 x 512 tokens in 2 groups, C 640), its decode (8 tokens, C 8) and
+# a qwen3-moe layer (4096 tokens in 2 groups, C 160).  The first is the slice
+# shape of the kernels' JSON line.
+GMM_SLICE = ("mixtral_eval_gate", "bfloat16", 16, 640, 4096, 14336, 8)
+GMM_TIMED = [
+    GMM_SLICE,
+    ("mixtral_eval_down", "bfloat16", 16, 640, 14336, 4096, 8),
+    ("mixtral_decode", "bfloat16", 8, 8, 4096, 14336, 8),
+    ("qwen3_layer", "bfloat16", 256, 160, 4096, 1536, 128),
+]
+GMM_EDGE_CASES = [
+    ("mixtral_eval_gate_f32", "float32", 16, 640, 4096, 14336, 8),
+    # a serving prefill batch of 8 x 501 tokens: one group, C 1256 (ragged)
+    ("serve_ragged", "bfloat16", 8, 1256, 4096, 14336, 8),
+    # ragged C, D and F (D % 8 != 0: the bf16 kernel's element-wise loads)
+    ("c37_d100_f72", "bfloat16", 3, 37, 100, 72, 3),
+    ("c37_d100_f72_f32", "float32", 3, 37, 100, 72, 3),
+    # ragged C and F with 16-byte loads (D, F multiples of 8)
+    ("c37_d96_f72", "bfloat16", 3, 37, 96, 72, 3),
+    ("e6_ew3", "bfloat16", 6, 37, 100, 72, 3),
+    ("e6_ew3_f32", "float32", 6, 37, 100, 72, 3),
+    ("e5_ew3", "bfloat16", 5, 37, 96, 72, 3),
+    ("e1", "bfloat16", 1, 37, 100, 72, 1),
+    ("e1_f32", "float32", 1, 37, 100, 72, 1),
+]
+
+
+def gmm_bound_ms(case) -> tuple[float, str]:
+    """Least time for the grouped matmul: x and w read once and the output
+    written once at the HBM rate, or 2 E C D F operations at the dtype's
+    peak, whichever is larger."""
+    import torch
+
+    _, dtype, E, C, D, F, Ew = case
+    esize = torch.finfo(getattr(torch, dtype)).bits // 8
+    nbytes = esize * (E * C * D + Ew * D * F + E * C * F)
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, 2 * E * C * D * F / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def check_gmm_kernel() -> dict:
+    """gmm against gmm_ref at the path's shapes and edge cases, x ~ N(0, 1) and
+    w at std 1/sqrt(D), so outputs are O(1); prints each case's max|err|,
+    RMS|ref| and margin.  Returns the timed cases' records by name."""
+    import torch
+
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    records = {}
+    for case in GMM_TIMED + GMM_EDGE_CASES:
+        name, dtype, E, C, D, F, Ew = case
+        dt = getattr(torch, dtype)
+        x = torch.randn(E, C, D, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(Ew, D, F, generator=gen, device="cuda") * D ** -0.5).to(dt)
+        out = mg.gmm(x, w)
+        torch.cuda.synchronize()
+        expected = ref.gmm_ref(x, w)
+        check(out.dtype == dt and out.shape == (E, C, F), f"gmm {name}: bad output")
+        check(bool(torch.isfinite(out.float()).all()), f"gmm {name}: not finite")
+        tol = kernel_tolerance(dtype, expected)
+        diff = (out.float() - expected.float()).abs()
+        err = diff.max().item()
+        rms = expected.float().square().mean().sqrt().item()
+        margin = (diff / (tol["atol"] + tol["rtol"] * expected.float().abs())).max().item()
+        print(f"  gmm {name:21s} {dtype:8s} E{E} C{C} D{D} F{F} Ew{Ew}: max|err| {err:.3e}, "
+              f"RMS|ref| {rms:.3e}, rtol {tol['rtol']}, atol {tol['atol']:.3e}, "
+              f"margin {margin:.3f}")
+        torch.testing.assert_close(out.float(), expected.float(), **tol,
+                                   msg=lambda m, n=name: f"gmm {n}: {m}")
+        del out, diff
+        if case in GMM_TIMED:
+            rec = {"max_abs_err": err}
+            rec["ms"] = time_ms(lambda: mg.gmm(x, w))
+            rec["plain_ms"] = time_ms(lambda: ref.gmm_ref(x, w), iters=5, warmup=1)
+            # the library yardstick: one batched matmul with w broadcast over
+            # the E / Ew groups; the port never calls it
+            xv = x.view(E // Ew, Ew, C, D)
+            lib = torch.matmul(xv, w)
+            torch.testing.assert_close(lib.reshape(E, C, F).float(), expected.float(), **tol)
+            del lib
+            rec["library_ms"] = time_ms(lambda: torch.matmul(xv, w))
+            rec["bound_ms"], rec["bound_by"] = gmm_bound_ms(case)
+            print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, torch.matmul "
+                  f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}); kernel at {100 * rec['bound_ms'] / rec['ms']:.1f} % "
+                  f"of its bound")
+            records[name] = rec
+        del x, w, expected
+        torch.cuda.empty_cache()
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -397,17 +518,20 @@ def profile_serving(model, params, tokens, max_len: int, steps: int = 8) -> None
 def launch_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_gmm as mg
 
     return {"flash_attention": fa.flash_attention.launches,
-            "mamba_scan": ms.mamba_scan.launches}
+            "mamba_scan": ms.mamba_scan.launches, "gmm": mg.gmm.launches}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_gmm as mg
 
     fa.flash_attention.launches = 0
     ms.mamba_scan.launches = 0
+    mg.gmm.launches = 0
 
 
 def serve_requests(model, params, n_requests: int, max_new: int):
@@ -535,32 +659,8 @@ def serve(n_requests: int = 16, max_new: int = 32) -> int:
     return launches
 
 
-def smoke_card_vs_cpu() -> None:
-    """A SMOKE model in f32 on the card (the kernel at head_dim 16) against the
-    same weights on the CPU (the kernel's plain version)."""
-    import numpy as np
-    import torch
-
-    from repro_torch import configs
-    from repro_torch.models import layers as L
-    from repro_torch.models.model import Model
-
-    cfg = configs.get("internlm2-1.8b", smoke=True).replace(
-        compute_dtype="float32", attention_impl="flash")
-    params = Model(cfg).init(torch.Generator("cpu").manual_seed(0), device="cpu")
-    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 37)))
-    with torch.inference_mode():
-        cpu_logits, cpu_cache = Model(cfg).prefill(params, {"tokens": tokens}, 40)
-        gpu_params = L.map_tree(lambda t: t.cuda(), params)
-        gpu_logits, gpu_cache = Model(cfg).prefill(gpu_params, {"tokens": tokens.cuda()}, 40)
-    torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, rtol=SMOKE_TOL, atol=SMOKE_TOL)
-    torch.testing.assert_close(gpu_cache["k"].cpu(), cpu_cache["k"], rtol=SMOKE_TOL,
-                               atol=SMOKE_TOL)
-    print(f"  SMOKE prefill, card vs CPU (f32): logits agree within {SMOKE_TOL}")
-
-
 # ---------------------------------------------------------------------------
-# phases 5-6: zamba2-7b evaluation and serving
+# phases 5-7: zamba2-7b and mixtral-8x7b evaluation and serving
 # ---------------------------------------------------------------------------
 
 
@@ -569,16 +669,17 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def zamba_model():
-    """zamba2-7b at full width and depth on the card, its weights redrawn from
-    seed 0 by repro_torch.testing.redraw_params_."""
+def big_model(arch: str, **overrides):
+    """``arch`` at full width on the card (with ``overrides``, such as a cut
+    depth), f32 params redrawn from seed 0 by repro_torch.testing.redraw_params_,
+    bf16 compute, attention_impl="flash"."""
     import torch
 
     from repro_torch import configs
     from repro_torch.models.model import Model
     from repro_torch.testing import redraw_params_
 
-    cfg = configs.get("zamba2-7b").replace(attention_impl="flash")
+    cfg = configs.get(arch).replace(attention_impl="flash", **overrides)
     check(cfg.compute_dtype == "bfloat16" and cfg.param_dtype == "float32",
           "expected f32 params, bf16 compute")
     model = Model(cfg)
@@ -586,15 +687,56 @@ def zamba_model():
     params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda")
     redraw_params_(params, seed=0)
     torch.cuda.synchronize()
-    print(f"  zamba2-7b: {cfg.n_layers} Mamba2 layers, d {cfg.d_model}, "
+    print(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     return model, params
 
 
-def evaluate(model, params, n_batches: int = 2, B: int = 8, S: int = 512) -> int:
+@contextlib.contextmanager
+def routing(record: list | None = None, replay: list | None = None):
+    """Within the block, each MoE layer's ``top_k_dispatch`` result (dispatch,
+    combine, aux) is appended to ``record``, or taken in order from ``replay``
+    instead of being computed."""
+    from repro_torch.models import moe
+
+    real = moe.top_k_dispatch
+    tape = iter(replay) if replay is not None else None
+
+    def dispatch(logits, cfg, capacity):
+        out = next(tape) if tape is not None else real(logits, cfg, capacity)
+        if record is not None:
+            record.append(out)
+        return out
+
+    moe.top_k_dispatch = dispatch
+    try:
+        yield
+    finally:
+        moe.top_k_dispatch = real
+
+
+def rerouted_tokens(a: list, b: list) -> list[int]:
+    """Per MoE layer, the tokens whose set of placed experts differs between
+    two recordings of ``routing`` (a choice that flipped, or a token dropped
+    at capacity in one and placed in the other)."""
+    return [int((da.any(-1) != db.any(-1)).any(-1).sum()) for (da, _, _), (db, _, _) in zip(a, b)]
+
+
+def evaluate(model, params, per_batch: dict, shallow: int, shallow_tol: float,
+             n_batches: int = 2, B: int = 8, S: int = 512):
     """make_eval_step over ``n_batches`` batches of B x S tokens (labels shifted
-    by one); returns mamba_scan's launches during them."""
+    by one); each kernel must launch ``per_batch[name]`` times a batch.  The
+    forward logits of the first batch through the kernels ("flash") are held
+    against the plain routes ("xla"): f32 at full depth, bf16 at the first
+    ``shallow`` layers.  Returns (the launches, the first batch's tokens).
+
+    An MoE layer's top-k routing is a step function of its input: a rounding
+    difference upstream flips a near-tied choice, and the token then takes
+    another expert, its logits moving by tens of percent.  For an MoE model
+    the flash run is therefore held against xla on xla's routing (replayed
+    through ``routing``), which isolates what the kernels change; the
+    distances on each run's own routing and the tokens rerouted are printed."""
     import numpy as np
     import torch
 
@@ -619,57 +761,135 @@ def evaluate(model, params, n_batches: int = 2, B: int = 8, S: int = 512) -> int
     print(f"  eval {n_batches} batches of {B} x {S} tokens: ms per batch "
           f"{[round(1e3 * t, 3) for t in times]}, loss {losses}; kernel launches {launches}")
     check(all(np.isfinite(losses)), f"eval loss not finite: {losses}")
-    check(launches["mamba_scan"] == cfg.n_layers * n_batches,
-          f"mamba_scan launched {launches['mamba_scan']} times, want "
-          f"{cfg.n_layers} x {n_batches} batches")
+    want = {name: n * n_batches for name, n in per_batch.items()}
+    check(launches == want, f"eval launched {launches}, want {want}")
 
-    # forward logits of the first batch through the kernel and through
-    # ssd_chunked: f32 and bf16 at full depth, bf16 at the first super-block
-    superblock = cfg.zamba.shared_period
     logits = {}
+    moe = cfg.moe is not None
+    flash = "flash_pinned" if moe else "flash"  # the run held against xla
     with torch.inference_mode():
         for n_layers, dtype in ((cfg.n_layers, "float32"), (cfg.n_layers, "bfloat16"),
-                                (superblock, "bfloat16")):
-            for impl in ("xla", "flash"):
-                run = Model(cfg.replace(n_layers=n_layers, compute_dtype=dtype,
-                                        attention_impl=impl))
-                out, _ = run.forward(params, batches[0])
-                check(bool(torch.isfinite(out).all()), f"{impl} {dtype} logits not finite")
-                logits[impl, n_layers, dtype] = out.float()
+                                (shallow, "bfloat16")):
+            run_cfg = cfg.replace(n_layers=n_layers, compute_dtype=dtype)
+            tapes = {"xla": [], "flash": []}
+            runs = [("xla", "xla", tapes["xla"], None), ("flash", "flash", tapes["flash"], None)]
+            if moe:
+                runs.append(("flash_pinned", "flash", None, tapes["xla"]))
+            for name, impl, record, replay in runs:
+                with routing(record, replay):
+                    out, _ = Model(run_cfg.replace(attention_impl=impl)).forward(
+                        params, batches[0])
+                check(bool(torch.isfinite(out).all()), f"{name} {dtype} logits not finite")
+                logits[name, n_layers, dtype] = out.float()
                 del out
+            if moe:
+                rerouted = rerouted_tokens(tapes["xla"], tapes["flash"])
+                print(f"  {dtype} at {n_layers} layers: tokens (of {B * S}) whose experts "
+                      f"differ between the xla and flash runs, by layer: {rerouted}; "
+                      f"flash vs xla on their own routing (relative L2), not checked: "
+                      f"{rel_l2(logits['flash', n_layers, dtype], logits['xla', n_layers, dtype]):.3e}")
+            del tapes
     full = cfg.n_layers
-    rel_f32 = rel_l2(logits["flash", full, "float32"], logits["xla", full, "float32"])
-    rel_sb = rel_l2(logits["flash", superblock, "bfloat16"], logits["xla", superblock, "bfloat16"])
-    print(f"  forward logits, flash vs xla (relative L2): f32 at {full} layers {rel_f32:.3e} "
-          f"(tol {EVAL_F32_TOL}); bf16 at the first super-block ({superblock} layers) "
-          f"{rel_sb:.3e} (tol {SUPERBLOCK_BF16_TOL})")
+    rel_f32 = rel_l2(logits[flash, full, "float32"], logits["xla", full, "float32"])
+    rel_sh = rel_l2(logits[flash, shallow, "bfloat16"], logits["xla", shallow, "bfloat16"])
+    on = " on xla's routing" if moe else ""
+    print(f"  forward logits, flash vs xla{on} (relative L2): f32 at {full} layers "
+          f"{rel_f32:.3e} (tol {EVAL_F32_TOL}); bf16 at the first {shallow} layers "
+          f"{rel_sh:.3e} (tol {shallow_tol})")
     xla32 = logits["xla", full, "float32"]
-    print(f"  bf16 at {full} layers, not checked (relative L2): flash vs xla "
-          f"{rel_l2(logits['flash', full, 'bfloat16'], logits['xla', full, 'bfloat16']):.3e}; "
+    print(f"  bf16 at {full} layers, not checked (relative L2): flash vs xla{on} "
+          f"{rel_l2(logits[flash, full, 'bfloat16'], logits['xla', full, 'bfloat16']):.3e}; "
           f"from the f32 xla run: flash "
           f"{rel_l2(logits['flash', full, 'bfloat16'], xla32):.3e}, xla "
           f"{rel_l2(logits['xla', full, 'bfloat16'], xla32):.3e}")
     check(rel_f32 <= EVAL_F32_TOL, f"flash f32 logits differ from xla f32: {rel_f32}")
-    check(rel_sb <= SUPERBLOCK_BF16_TOL,
-          f"flash bf16 logits at the first super-block differ from xla bf16: {rel_sb}")
+    check(rel_sh <= shallow_tol,
+          f"flash bf16 logits at the first {shallow} layers differ from xla bf16: {rel_sh}")
     del logits, xla32
     _profile("eval (1 batch)", lambda: eval_step(params, batches[0]))
-    return launches["mamba_scan"]
+    return launches, batches[0]["tokens"]
 
 
-def serve_zamba(model, params, n_requests: int = 16, max_new: int = 32) -> None:
-    """Serving runs no kernel: prefill is ssd_chunked, decode the single-step
-    recurrence, the shared block attend_xla (head_dim 112)."""
-    _, launches, prompts = serve_requests(model, params, n_requests, max_new)
-    check(launches == {"flash_attention": 0, "mamba_scan": 0},
-          f"zamba2 serving launched kernels: {launches}")
+def serve_and_profile(model, params, per_batch: dict, n_requests: int = 16,
+                      max_new: int = 32):
+    """16 requests through serve_requests; each kernel must launch
+    ``per_batch[name]`` times a prefill batch.  Profiles one prefill batch and
+    8 decode steps; returns the prompts."""
+    batches, launches, prompts = serve_requests(model, params, n_requests, max_new)
+    want = {name: n * batches for name, n in per_batch.items()}
+    check(launches == want, f"serving launched {launches}, want {want}")
     profile_serving(model, params, first_batch(prompts), max_len=512 + max_new)
+    return prompts
 
 
-def zamba_smoke_card_vs_cpu() -> None:
-    """A zamba2 SMOKE model in f32 on the card against the same weights on the
-    CPU: forward logits (the kernel against its plain version inside), prefill
-    logits and every cache leaf, and 4 decode steps."""
+def moe_layer_input(params, cfg, tokens):
+    """Layer 0's MoE params and its real normed input for ``tokens``: the
+    embedding, the attention residual and mlp_norm, as apply_block runs them."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tfm
+
+    p = tfm.layer_params(params["blocks"], 0)
+    x = tfm.embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h = L.apply_norm(p["attn_norm"], x, cfg.norm_type, cfg.norm_eps)
+    attn_out, _ = attn.apply_attention(p["attn"], cfg, h, positions, window=cfg.sliding_window)
+    return p["moe"], L.apply_norm(p["mlp_norm"], x + attn_out, cfg.norm_type, cfg.norm_eps)
+
+
+def check_gmm_route(cfg, params, inputs: dict) -> int:
+    """apply_moe(use_gmm=True) against use_gmm=False on layer 0 for each token
+    batch of ``inputs``, in f32 and bf16: gmm launches 3 times a call, the aux
+    losses are equal (the dispatch is shared) and the outputs agree.  cuBLAS's
+    reduced-precision bf16 reductions are off for the comparison, so the
+    einsum route sums in f32 as the kernel does.  Returns gmm's launches."""
+    import torch
+
+    from repro_torch.models import moe
+
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    reset_launch_counts()
+    for name, tokens in inputs.items():
+        T = tokens.numel()
+        groups = moe.group_tokens(T)
+        C = moe.capacity_for(T // groups, cfg)
+        for dtype in ("float32", "bfloat16"):
+            run_cfg = cfg.replace(compute_dtype=dtype)
+            with torch.inference_mode():
+                moe_params, h = moe_layer_input(params, run_cfg, tokens)
+                before = launch_counts()["gmm"]
+                out_k, aux_k = moe.apply_moe(moe_params, run_cfg, h, use_gmm=True)
+                torch.cuda.synchronize()
+                n = launch_counts()["gmm"] - before
+                out_e, aux_e = moe.apply_moe(moe_params, run_cfg, h, use_gmm=False)
+            check(n == 3, f"apply_moe(use_gmm=True) launched gmm {n} times, want 3")
+            check(bool(torch.isfinite(out_k.float()).all()), f"gmm route {name} not finite")
+            check(bool(torch.equal(aux_k, aux_e)), f"aux differs: {aux_k} vs {aux_e}")
+            rel = rel_l2(out_k.float(), out_e.float())
+            line = (f"  apply_moe {name} batch {tuple(tokens.shape)} ({groups} group(s), C {C}) "
+                    f"{dtype}: gmm vs einsum relative L2 {rel:.3e}, aux {aux_k.item():.6f}")
+            if dtype == "float32":
+                tol = dict(rtol=GMM_ROUTE_F32_TOL, atol=GMM_ROUTE_F32_TOL)
+                diff = (out_k - out_e).abs()
+                margin = (diff / (GMM_ROUTE_F32_TOL * (1 + out_e.abs()))).max().item()
+                print(f"{line}, max|err| {diff.max().item():.3e}, margin {margin:.3f} "
+                      f"(rtol = atol = {GMM_ROUTE_F32_TOL})")
+                torch.testing.assert_close(out_k, out_e, **tol)
+            else:
+                print(f"{line} (tol {GMM_ROUTE_BF16_TOL})")
+                check(rel <= GMM_ROUTE_BF16_TOL, f"gmm bf16 route differs: {rel}")
+            del out_k, out_e, h
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    return launch_counts()["gmm"]
+
+
+def smoke_model_card_vs_cpu(arch: str, kernel: str) -> None:
+    """An ``arch`` SMOKE model in f32 on the card against the same weights on
+    the CPU: forward logits (``kernel`` against its plain version inside, once
+    per layer), prefill logits and every cache leaf, and 4 decode steps."""
     import numpy as np
     import torch
 
@@ -678,8 +898,8 @@ def zamba_smoke_card_vs_cpu() -> None:
     from repro_torch.models.model import Model
     from repro_torch.testing import redraw_params_
 
-    cfg = configs.get("zamba2-7b", smoke=True).replace(compute_dtype="float32",
-                                                       attention_impl="flash")
+    cfg = configs.get(arch, smoke=True).replace(compute_dtype="float32",
+                                                attention_impl="flash")
     model = Model(cfg)
     params = model.init(torch.Generator("cpu").manual_seed(0), device="cpu")
     redraw_params_(params, seed=0)
@@ -687,25 +907,28 @@ def zamba_smoke_card_vs_cpu() -> None:
     tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 41)))
     prompt, max_len = tokens[:, :37], 41
     tol = dict(rtol=SMOKE_TOL, atol=SMOKE_TOL)
-    before = launch_counts()["mamba_scan"]
+    before = launch_counts()[kernel]
     with torch.inference_mode():
-        cpu_fwd, _ = model.forward(params, {"tokens": prompt})
-        gpu_fwd, _ = model.forward(gpu_params, {"tokens": prompt.cuda()})
-        check(launch_counts()["mamba_scan"] == before + cfg.n_layers,
-              "SMOKE forward on the card did not launch mamba_scan once per layer")
+        cpu_fwd, cpu_aux = model.forward(params, {"tokens": prompt})
+        gpu_fwd, gpu_aux = model.forward(gpu_params, {"tokens": prompt.cuda()})
+        check(launch_counts()[kernel] == before + cfg.n_layers,
+              f"SMOKE forward on the card did not launch {kernel} once per layer")
         torch.testing.assert_close(gpu_fwd.cpu(), cpu_fwd, **tol)
+        torch.testing.assert_close(torch.as_tensor(gpu_aux).cpu(), torch.as_tensor(cpu_aux),
+                                   **tol)
         cpu_logits, cpu_cache = model.prefill(params, {"tokens": prompt}, max_len)
         gpu_logits, gpu_cache = model.prefill(gpu_params, {"tokens": prompt.cuda()}, max_len)
         torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, **tol)
-        for key in ("groups", "tail", "shared"):
-            for leaf in cpu_cache[key]:
-                torch.testing.assert_close(gpu_cache[key][leaf].cpu(), cpu_cache[key][leaf], **tol)
+        gpu_leaves = dict(L.flatten_specs(gpu_cache))
+        for path, leaf in L.flatten_specs(cpu_cache):
+            if leaf is not None:
+                torch.testing.assert_close(gpu_leaves[path].cpu(), leaf, **tol)
         for pos in range(37, 41):
             new = tokens[:, pos:pos + 1]
             cpu_logits, cpu_cache = model.decode_step(params, new, cpu_cache, pos)
             gpu_logits, gpu_cache = model.decode_step(gpu_params, new.cuda(), gpu_cache, pos)
             torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, **tol)
-    print(f"  zamba2 SMOKE, card vs CPU (f32): forward, prefill logits and caches, "
+    print(f"  {arch} SMOKE, card vs CPU (f32): forward, prefill logits and caches, "
           f"4 decode steps agree within {SMOKE_TOL}")
 
 
@@ -733,7 +956,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    reports = build.build("flash_attention", "mamba_scan")
+    reports = build.build("flash_attention", "mamba_scan", "moe_gmm")
     print(f"  built {[name for name, rep in reports.items() if rep]} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
@@ -744,26 +967,46 @@ def main() -> int:
     print("== kernels vs plain versions")
     attn = check_attention_kernel()
     ssd = check_mamba_kernel()
+    gmm = check_gmm_kernel()[GMM_SLICE[0]]
 
     print("== serve internlm2-1.8b")
     fa_launches = serve()
-    smoke_card_vs_cpu()
+    smoke_model_card_vs_cpu("internlm2-1.8b", "flash_attention")
     torch.cuda.empty_cache()  # the internlm2 weights are freed before zamba2's
 
     print("== evaluate zamba2-7b")
-    model, params = zamba_model()
-    ms_launches = evaluate(model, params)
+    model, params = big_model("zamba2-7b")
+    launches, _ = evaluate(model, params, {"flash_attention": 0, "mamba_scan": model.cfg.n_layers,
+                                           "gmm": 0},
+                           shallow=model.cfg.zamba.shared_period, shallow_tol=SUPERBLOCK_BF16_TOL)
+    ms_launches = launches["mamba_scan"]
 
     print("== serve zamba2-7b")
-    serve_zamba(model, params)
+    # no kernel: prefill is ssd_chunked, decode the single-step recurrence, the
+    # shared block attend_xla (head_dim 112)
+    serve_and_profile(model, params, {"flash_attention": 0, "mamba_scan": 0, "gmm": 0})
     del model, params
     torch.cuda.empty_cache()
-    zamba_smoke_card_vs_cpu()
+    smoke_model_card_vs_cpu("zamba2-7b", "mamba_scan")
+
+    print(f"== mixtral-8x7b ({MIXTRAL_LAYERS} of 32 layers): evaluate")
+    model, params = big_model("mixtral-8x7b", n_layers=MIXTRAL_LAYERS)
+    flash_only = {"flash_attention": model.cfg.n_layers, "mamba_scan": 0, "gmm": 0}
+    _, eval_tokens = evaluate(model, params, flash_only, shallow=SHALLOW_LAYERS,
+                              shallow_tol=PREFILL_SHALLOW_BF16_TOL)
+    print("== mixtral-8x7b: serve")
+    prompts = serve_and_profile(model, params, flash_only)
+    print("== mixtral-8x7b: apply_moe through gmm")
+    gmm_launches = check_gmm_route(model.cfg, params, {"eval": eval_tokens,
+                                                       "serve": first_batch(prompts)})
+    del model, params
+    torch.cuda.empty_cache()
+    smoke_model_card_vs_cpu("mixtral-8x7b", "flash_attention")
 
     print("== launcher")
     from repro_torch.launch.serve import main as serve_main
 
-    for argv in ([], ["--arch", "zamba2-7b"]):
+    for argv in ([], ["--arch", "zamba2-7b"], ["--arch", "mixtral-8x7b"]):
         check(serve_main(argv) == 0, f"launcher failed for {argv}")
 
     kernels = [{
@@ -782,6 +1025,14 @@ def main() -> int:
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None, "ssd_chunked_ms": ssd["ssd_chunked_ms"],
+    }, {
+        "name": "gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:46",
+        "launches": gmm_launches, "max_abs_err": gmm["max_abs_err"],
+        "ms": gmm["ms"], "plain_ms": gmm["plain_ms"],
+        "bound_ms": gmm["bound_ms"], "bound_by": gmm["bound_by"],
+        "library_ms": gmm["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

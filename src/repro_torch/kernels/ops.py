@@ -4,15 +4,19 @@ A CUDA tensor always launches the hand-written kernel; a CPU tensor always
 takes the kernel's plain version in :mod:`repro_torch.kernels.ref`.  The
 reference's block- and chunk-halving loops (``repro/kernels/ops.py:28-31,
 43-44``) are a TPU tiling workaround and have no counterpart: the CUDA kernels
-mask ragged edges themselves.
+mask ragged edges themselves.  For the same reason ``gmm`` takes any C, D and
+F, where the reference's raises unless they tile by its 128-wide blocks
+(``repro/kernels/moe_gmm.py:59-60``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba_scan as _ms
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
 
 
@@ -34,3 +38,26 @@ def mamba_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
         y, _ = ref.mamba_scan_ref(xh, dt, A, Bm, Cm)
         return y
     return _ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=chunk)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul [E,C,D] x [Ew,D,F] -> [E,C,F], slab ``e % Ew``."""
+    if x.device.type == "cpu":
+        return ref.gmm_ref(x, w)
+    return _gmm.gmm(x, w)
+
+
+def moe_expert_mlp(expert_in: torch.Tensor, experts: dict, cfg) -> torch.Tensor:
+    """SwiGLU expert FFN via grouped matmuls.  expert_in [(G,)E,C,D]."""
+    squeeze = expert_in.dim() == 3
+    if squeeze:
+        expert_in = expert_in[None]
+    G, E, C, D = expert_in.shape
+    # the dispatch einsum may hand over a permuted view; the kernel reads rows
+    x = expert_in.reshape(G * E, C, D).contiguous()
+    w_gate = experts["gate"].to(x.dtype)
+    w_up = experts["up"].to(x.dtype)
+    w_down = experts["down"].to(x.dtype)
+    h = F.silu(gmm(x, w_gate)) * gmm(x, w_up)
+    out = gmm(h, w_down).reshape(G, E, C, D)
+    return out[0] if squeeze else out

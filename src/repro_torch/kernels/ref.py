@@ -1,8 +1,7 @@
 """Plain PyTorch oracles for the hand-written kernels (the correctness contract).
 
-Line-for-line counterpart of ``repro/kernels/ref.py``; the attention and SSD
-scan oracles are ported, the grouped-matmul ones come with ``gmm`` (see
-ROADMAP.md).
+Line-for-line counterpart of ``repro/kernels/ref.py``: attention, the SSD
+scan, the grouped matmul and the SwiGLU expert FFN.
 """
 
 from __future__ import annotations
@@ -65,3 +64,23 @@ def mamba_scan_ref(
         h = decay[..., None, None] * h + dBx
         ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].to(f32), h))
     return torch.stack(ys, dim=1).to(xh.dtype), h
+
+
+def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped (per-expert) matmul: [E,C,D] x [Ew,D,F] -> [E,C,F], slab
+    ``e % Ew`` for group ``e`` (as the kernel indexes it), summed in f32 and
+    cast to x's dtype."""
+    slab = torch.arange(x.shape[0], device=x.device) % w.shape[0]
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()[slab]).to(x.dtype)
+
+
+def expert_mlp_ref(x: torch.Tensor, experts: dict) -> torch.Tensor:
+    """SwiGLU expert FFN over dispatched tokens [(G,)E,C,D]."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    h = torch.nn.functional.silu(
+        torch.einsum("gecd,edf->gecf", x, experts["gate"].to(x.dtype)))
+    h = h * torch.einsum("gecd,edf->gecf", x, experts["up"].to(x.dtype))
+    out = torch.einsum("gecf,efd->gecd", h, experts["down"].to(x.dtype))
+    return out[0] if squeeze else out

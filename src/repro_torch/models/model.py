@@ -7,8 +7,8 @@
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, tokens, cache, position)
 
-Counterpart of ``repro/models/model.py`` for the ``dense``, ``vlm`` and
-``hybrid`` (zamba2) families.  ``batch``: tokens [B,S] (and labels [B,S],
+Counterpart of ``repro/models/model.py`` for the ``dense``, ``vlm``, ``moe``
+and ``hybrid`` (zamba2) families.  ``batch``: tokens [B,S] (and labels [B,S],
 optionally loss_mask [B,S], for ``loss``), plus pixel_embeds [B,K,D] for vlm.
 The other families raise NotImplementedError until their slice is ported.
 """
@@ -23,7 +23,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 
-PORTED_FAMILIES = ("dense", "vlm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -50,6 +50,18 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     return total
 
 
+def active_params_analytic(cfg: ModelConfig) -> int:
+    """MoE: parameters touched per token (for 6·N_active·D roofline FLOPs)."""
+    total = count_params_analytic(cfg)
+    if cfg.moe is None:
+        return total
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    per_expert = 3 * cfg.d_model * cfg.moe.d_ff
+    expert_total = cfg.n_layers * e * per_expert
+    expert_active = cfg.n_layers * k * per_expert
+    return total - expert_total + expert_active
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
         _require_ported(cfg)
@@ -71,10 +83,13 @@ class Model:
                               batch.get("pixel_embeds"))
 
     def loss(self, params, batch):
-        """Mean next-token cross-entropy in f32 (the MoE aux term comes with
-        the MoE family)."""
-        logits, _ = self.forward(params, batch)
-        return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        """Mean next-token cross-entropy in f32, plus the weighted router aux
+        loss for MoE configs."""
+        logits, aux = self.forward(params, batch)
+        ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        if self.cfg.moe is not None:
+            ce = ce + self.cfg.moe.aux_loss_weight * aux
+        return ce
 
     # --------------------------------------------------------------- serving
     def prefill(self, params, batch, max_len: int):

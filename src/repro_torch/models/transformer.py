@@ -1,11 +1,11 @@
-"""Decoder-only LM assembly: the dense (and VLM-prefix) stack and zamba2's
-hybrid stack.
+"""Decoder-only LM assembly: the dense, MoE (and VLM-prefix) stack and
+zamba2's hybrid stack.
 
-Counterpart of ``repro/models/transformer.py:82-446`` without the MoE FFN.
-Block parameters stay stacked with a leading layer axis ``[L, ...]``, as in
-the reference, so the weight bridge is a copy; the reference's ``lax.scan``
-over that axis becomes a Python loop over layer views.  The MoE and xLSTM
-stacks are later slices (see ROADMAP.md).
+Counterpart of ``repro/models/transformer.py:82-446``.  Block parameters stay
+stacked with a leading layer axis ``[L, ...]``, as in the reference, so the
+weight bridge is a copy; the reference's ``lax.scan`` over that axis becomes
+a Python loop over layer views.  The xLSTM stack is a later slice (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import ParamSpec
 
@@ -37,7 +38,7 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
-# One transformer block (dense FFN)
+# One transformer block (dense or MoE FFN)
 # ---------------------------------------------------------------------------
 
 
@@ -48,8 +49,20 @@ def init_block(cfg: ModelConfig):
     }
     if not cfg.parallel_residual:
         spec["mlp_norm"] = L.init_norm(cfg.d_model, cfg.norm_type, cfg.use_bias)
-    spec["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, cfg.use_bias)
+    if cfg.family == "moe" or (cfg.moe is not None and cfg.family != "dense"):
+        spec["moe"] = moe_mod.init_moe(cfg)
+    else:
+        spec["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, cfg.use_bias)
     return spec
+
+
+def _ffn(params, cfg: ModelConfig, h: torch.Tensor):
+    """(FFN output, aux loss): the MoE layer, called without ``use_gmm`` as the
+    reference's block calls it, or the dense MLP with aux 0.0 (a Python float,
+    so prefill and decode of a dense stack launch nothing for it)."""
+    if "moe" in params:
+        return moe_mod.apply_moe(params["moe"], cfg, h)
+    return L.apply_mlp(params["mlp"], h, cfg.mlp_type), 0.0
 
 
 def apply_block(
@@ -60,7 +73,7 @@ def apply_block(
     cache: dict | None = None,
     cache_position: int | None = None,
 ):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux_loss)."""
     h = L.apply_norm(params["attn_norm"], x, cfg.norm_type, cfg.norm_eps)
     attn_out, new_cache = attn.apply_attention(
         params["attn"], cfg, h, positions,
@@ -69,13 +82,14 @@ def apply_block(
     )
     if cfg.parallel_residual:
         # command-r style: attention and FFN read the same normed input
-        ffn_out = L.apply_mlp(params["mlp"], h, cfg.mlp_type)
+        ffn_out, aux = _ffn(params, cfg, h)
         x = x + attn_out + ffn_out
     else:
         x = x + attn_out
         h = L.apply_norm(params["mlp_norm"], x, cfg.norm_type, cfg.norm_eps)
-        x = x + L.apply_mlp(params["mlp"], h, cfg.mlp_type)
-    return x, new_cache
+        ffn_out, aux = _ffn(params, cfg, h)
+        x = x + ffn_out
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +126,7 @@ def lm_logits(params, cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
-# Dense LM (homogeneous stack)
+# Dense / MoE LM (homogeneous stack)
 # ---------------------------------------------------------------------------
 
 
@@ -124,13 +138,15 @@ def init_lm(cfg: ModelConfig):
 
 def forward_lm(params, cfg: ModelConfig, tokens: torch.Tensor,
                pixel_embeds: torch.Tensor | None = None):
-    """Training/eval forward.  Returns (logits, aux_loss); the aux loss is the
-    MoE router's, so it is 0 for the dense stack."""
+    """Training/eval forward.  Returns (logits, aux_loss): the MoE router's
+    aux loss averaged over the layers, 0 for the dense stack."""
     x = embed_tokens(params, cfg, tokens, pixel_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = torch.zeros((), device=tokens.device)
     for i in range(cfg.n_layers):
-        x, _ = apply_block(layer_params(params["blocks"], i), cfg, x, positions)
-    return lm_logits(params, cfg, x), torch.zeros((), device=tokens.device)
+        x, _, a = apply_block(layer_params(params["blocks"], i), cfg, x, positions)
+        aux = aux + a
+    return lm_logits(params, cfg, x), aux / max(cfg.n_layers, 1)
 
 
 def prefill_lm(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
@@ -143,7 +159,7 @@ def prefill_lm(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
     caches = attn.init_kv_cache(cfg, cfg.n_layers, B, max_len, compute_dtype(cfg),
                                 tokens.device)
     for i in range(cfg.n_layers):
-        x, _ = apply_block(
+        x, _, _ = apply_block(
             layer_params(params["blocks"], i), cfg, x, positions,
             cache=layer_params(caches, i), cache_position=0,
         )
@@ -158,7 +174,7 @@ def decode_lm(params, cfg: ModelConfig, tokens_new: torch.Tensor, caches,
     positions = torch.full((tokens_new.shape[0], 1), position, dtype=torch.int32,
                            device=tokens_new.device)
     for i in range(cfg.n_layers):
-        x, _ = apply_block(
+        x, _, _ = apply_block(
             layer_params(params["blocks"], i), cfg, x, positions,
             cache=layer_params(caches, i), cache_position=position,
         )

@@ -155,14 +155,22 @@ def test_sampled_decoding_is_seeded():
 # ---------------------------------------------------------------------------
 
 
-def test_bridge_round_trips_bitwise():
-    jcfg, tcfg = _cfgs("internlm2-1.8b")
+@pytest.mark.parametrize("arch,n_leaves", [("internlm2-1.8b", 12), ("mixtral-8x7b", 13),
+                                           ("qwen3-moe-235b-a22b", 13)])
+def test_bridge_round_trips_bitwise(arch, n_leaves):
+    """Dense: 9 of 12 leaves stacked under ``blocks``.  MoE: the MLP's three
+    weights give way to the router [L,D,E] and experts [L,E,D,F]/[L,E,F,D]."""
+    jcfg, tcfg = _cfgs(arch)
     jparams, tparams = _params(jcfg, tcfg)
     back = bridge.params_to_jax(tparams, tcfg)
     jleaves = jax.tree_util.tree_leaves_with_path(jparams)
     bleaves = jax.tree_util.tree_leaves_with_path(back)
-    assert len(jleaves) == len(bleaves) == 12
+    assert len(jleaves) == len(bleaves) == n_leaves
     assert tparams["blocks"]["attn"]["wq"]["w"].shape[0] == tcfg.n_layers
+    if tcfg.moe is not None:
+        E, D, F = tcfg.moe.n_experts, tcfg.d_model, tcfg.moe.d_ff
+        assert tparams["blocks"]["moe"]["router"]["w"].shape == (tcfg.n_layers, D, E)
+        assert tparams["blocks"]["moe"]["experts"]["down"].shape == (tcfg.n_layers, E, F, D)
     for (jp, j), (bp, b) in zip(jleaves, bleaves):
         assert jp == bp and b.dtype == j.dtype
         np.testing.assert_array_equal(b, np.asarray(j))
@@ -182,7 +190,8 @@ def test_bridge_rejects_mismatched_trees(fault):
         bridge.params_from_jax(tree, tcfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["internvl2-2b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["internvl2-2b", "zamba2-7b", "mixtral-8x7b",
+                                  "qwen3-moe-235b-a22b"])
 def test_model_init_matches_jax_tree(arch):
     jcfg, tcfg = _cfgs(arch)
     jparams, _ = JaxModel(jcfg).init(jax.random.PRNGKey(0))
@@ -196,7 +205,7 @@ def test_model_init_matches_jax_tree(arch):
 
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(configs.get("mixtral-8x7b", smoke=True))
+        Model(configs.get("xlstm-1.3b", smoke=True))
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
