@@ -8,7 +8,8 @@ Phases, each of which raises on failure (a non-zero exit):
 
 1. device   - the card's name and power limit; TF32 off for the comparisons;
 2. build    - compiles the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-              into ``build/``, one nvcc per source, started together;
+              into ``build/``, one nvcc per source, started together; the
+              bf16 attention kernel must not spill;
 3. kernels  - each kernel's wrapper against its plain PyTorch version on the
               card, at its path's shape and at edge cases, with times of the
               kernel, the plain version, the PyTorch library call that
@@ -41,6 +42,11 @@ Phases, each of which raises on failure (a non-zero exit):
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --flash-ablation
+
+times the bf16 attention kernel with its products, its softmax or its K/V
+loads switched off, beside the full kernel and SDPA: where its time goes.
 It needs CUDA and the repository's ``src/``; without either it exits non-zero.
 """
 
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,13 +68,16 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # f32: the reference's own tolerance (tests/kernels/test_kernels.py:20-21); bf16:
 # both sides read the same bf16 inputs, compute in f32 and round the output
-# once, so they differ by the f32 rounding plus one bf16 step of the output
+# once; the attention kernel also rounds P to bf16 before the PV product (up to
+# 2^-9 of each term), so they differ by about one bf16 step of the output
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # Prefill logits through the kernel against the same port through attend_xla
 # (relative L2).  In f32 at full depth the two differ only in summation order.
-# In bf16 every layer rounds its activations, and the kernel keeps P in f32
-# where attend_xla rounds it to bf16; 24 layers of random weights amplify that
-# to several percent (the JAX package's own bf16 path does the same, see
+# In bf16 every layer rounds its activations, and both round P to bf16 before
+# the PV product but at other points: the kernel rounds each tile's
+# unnormalised p and divides by the f32 row sum at the end, attend_xla rounds
+# the normalised softmax.  24 layers of random weights amplify that to several
+# percent (the JAX package's own bf16 path does the same, see
 # tests/test_torch_bf16.py), so bf16 is held at the first layer only.
 PREFILL_F32_TOL = 1e-3
 PREFILL_SHALLOW_BF16_TOL = 2e-2
@@ -113,13 +123,22 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: CUDA events around ``iters`` calls.  The stream
+    is first held by a spin kernel long enough for the host to enqueue them
+    all (up to 50 ms), so a call that takes longer to issue than to run is
+    timed by what it runs, not by its host overhead."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(iters * host_s, 0.05) * 2e9))  # cycles at <= 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -132,8 +151,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# name, dtype, B, S, T, H, K, D, causal, window, softcap
+# name, dtype, B, S, T, H, K, D, causal, window, softcap.  Timed: internlm2's
+# prefill (the slice shape of the kernels' JSON line), mixtral's eval and
+# prefill (window 4096 >= T, so the mask is the causal one) and the slice
+# shape in f32, which runs on the FMA kernel.
 SLICE_CASE = ("slice", "bfloat16", 8, 512, 512, 16, 8, 128, True, None, None)
+FLASH_TIMED = [
+    SLICE_CASE,
+    ("mixtral", "bfloat16", 8, 512, 512, 32, 8, 128, True, 4096, None),
+    ("slice_f32", "float32", 8, 512, 512, 16, 8, 128, True, None, None),
+]
 EDGE_CASES = [
     ("ragged", "bfloat16", 2, 100, 100, 16, 8, 128, True, None, None),
     ("ragged_f32", "float32", 2, 100, 100, 4, 2, 64, True, None, None),
@@ -146,7 +173,16 @@ EDGE_CASES = [
     ("softcap30", "bfloat16", 2, 256, 256, 8, 2, 64, True, None, 30.0),
     ("noncausal", "bfloat16", 2, 200, 200, 8, 4, 128, False, None, None),
     ("s_lt_t_f32", "float32", 1, 64, 192, 4, 2, 64, True, None, None),
-    ("slice_f32", "float32", 8, 512, 512, 16, 8, 128, True, None, None),
+    # the bf16 tensor-core tiling: every head dim, lengths that are not
+    # multiples of 16, S < T, a window off the 64-row tiles, G 4 with softcap
+    ("d16", "bfloat16", 2, 128, 128, 4, 2, 16, True, None, None),
+    ("d32", "bfloat16", 2, 128, 128, 4, 2, 32, True, None, None),
+    ("s_lt_t", "bfloat16", 2, 64, 192, 8, 2, 128, True, None, None),
+    ("s1", "bfloat16", 2, 1, 1, 8, 2, 128, True, None, None),
+    ("s37", "bfloat16", 2, 37, 37, 8, 2, 64, True, None, None),
+    ("s37_noncausal", "bfloat16", 2, 37, 100, 8, 2, 32, False, None, None),
+    ("window100", "bfloat16", 2, 300, 300, 8, 2, 128, True, 100, None),
+    ("g4_softcap", "bfloat16", 2, 256, 256, 16, 4, 128, True, None, 30.0),
 ]
 
 
@@ -171,6 +207,8 @@ def attention_bound_ms(case) -> tuple[float, str]:
 
 
 def check_attention_kernel() -> dict:
+    """flash_attention against attention_ref at the timed shapes and edge
+    cases; returns the timed cases' records by name."""
     import torch
     import torch.nn.functional as F
 
@@ -178,8 +216,8 @@ def check_attention_kernel() -> dict:
     from repro_torch.kernels import ref
 
     gen = torch.Generator("cuda").manual_seed(0)
-    record = {}
-    for case in [SLICE_CASE] + EDGE_CASES:
+    records = {}
+    for case in FLASH_TIMED + EDGE_CASES:
         name, dtype, B, S, T, H, K, D, causal, window, softcap = case
         dt = getattr(torch, dtype)
         q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
@@ -197,24 +235,43 @@ def check_attention_kernel() -> dict:
         print(f"  flash_attention {name:11s} {dtype:8s} B{B} S{S} T{T} H{H} K{K} "
               f"D{D} causal={causal} window={window} softcap={softcap}: "
               f"max|err| {err:.3e} (tol {TOL[dtype]})")
-        if case is SLICE_CASE:
-            record = {"max_abs_err": err}
-            record["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
-            record["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, **kw))
-            # the library yardstick: SDPA on the same tensors, laid out [B,H,S,D]
-            # outside the timed region; the port never calls it
+        if case in FLASH_TIMED:
+            rec = {"max_abs_err": err}
+            rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, **kw))
+            # the library yardstick: causal SDPA (every timed window covers T)
+            # on the same tensors, laid out [B,H,S,D] outside the timed region;
+            # the port never calls it.  Its f32 check is looser: it only shows
+            # that SDPA computes the same function, by whatever arithmetic.
+            check(causal and (window is None or window >= T), f"{name}: SDPA mask differs")
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  enable_gqa=True)
+            lib_tol = TOL[dtype] if dtype == "bfloat16" else 1e-3
             torch.testing.assert_close(lib.transpose(1, 2).float(), expected.float(),
-                                       rtol=TOL[dtype], atol=TOL[dtype])
-            record["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                                       rtol=lib_tol, atol=lib_tol)
+            rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
-            record["bound_ms"], record["bound_by"] = attention_bound_ms(case)
-            print(f"  slice shape: kernel {record['ms']:.4f} ms, plain "
-                  f"{record['plain_ms']:.4f} ms, SDPA {record['library_ms']:.4f} ms, "
-                  f"bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
-    return record
+            rec["bound_ms"], rec["bound_by"] = attention_bound_ms(case)
+            print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
+                  f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}); kernel at {100 * rec['bound_ms'] / rec['ms']:.1f} % "
+                  f"of its bound, {rec['library_ms'] / rec['ms']:.2f}x SDPA's speed")
+            records[name] = rec
+            del qt, kt, vt, lib
+    return records
+
+
+def ptxas_spills(report: str) -> dict[str, tuple[int, int]]:
+    """Spill stores and loads in bytes by (mangled) entry function, from
+    nvcc's -Xptxas -v report."""
+    spills, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif (found := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spills[entry] = (int(found[1]), int(found[2]))
+    return spills
 
 
 # name, dtype, B, S, H, P, N, chunk, dt shift (softplus(randn + shift)), strided
@@ -484,6 +541,12 @@ def _kernel_time(trace: Path, top: int = 6) -> str:
              f"({100 * busy / window:.1f} %), {len(events)} kernels"]
     for name, dur in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         lines.append(f"    {100 * dur / total:5.1f} %  {dur / 1e3:9.3f} ms  {name[:90]}")
+    # the port's own kernels, wherever they rank
+    for name, dur in by_name.items():
+        if any(k in name for k in ("flash_attention", "mamba_scan", "gmm_")):
+            n = sum(e["name"] == name for e in events)
+            lines.append(f"    port kernel {name[:60]}: {dur / 1e3:.3f} ms in {n} launches "
+                         f"({100 * dur / total:.1f} % of kernel time)")
     return "\n".join(lines)
 
 
@@ -933,6 +996,103 @@ def smoke_model_card_vs_cpu(arch: str, kernel: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# python3 chip_smoke.py --flash-ablation: the attention kernel with parts of
+# its work switched off, by text substitution in a copy of its source
+# ---------------------------------------------------------------------------
+
+NO_GEMM = [
+    ("  for (int kk = 0; kk < D / 16; ++kk)\n    ptx::wgmma_m64n64k16<0>(",
+     "  for (int kk = 0; kk < 0; ++kk)\n    ptx::wgmma_m64n64k16<0>("),
+    ("for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(",
+     "for (int kk = 0; kk < 0; ++kk) pv_wgmma<D>("),
+]
+# the loop runs no time, but the compiler still sees its code
+NO_SOFTMAX = [
+    ("    // online softmax; entries 2i, 2i+1 of each fragment belong to row i\n"
+     "#pragma unroll\n    for (int i = 0; i < 2; ++i) {",
+     "    // online softmax; entries 2i, 2i+1 of each fragment belong to row i\n"
+     "#pragma unroll\n    for (int i = 0; i < 2 * (softcap < 0.f); ++i) {"),
+]
+# only the first K/V tile is loaded and waited for; later tiles reuse stale data
+NO_KV_LOADS = [
+    ("    ptx::mbar_wait(&landed[stage], ((j_hi - j + stage) >> 1) & 1);",
+     "    if (j == j_hi) ptx::mbar_wait(&landed[stage], ((j_hi - j + stage) >> 1) & 1);"),
+    ("    if (j > j_lo && tid == 0) {", "    if (j < -1 && tid == 0) {"),
+]
+ABLATIONS = {
+    "full": [],
+    "no_products": NO_GEMM,
+    "no_softmax": NO_SOFTMAX,
+    "no_kv_loads": NO_KV_LOADS,
+    "loads_and_stores_only": NO_GEMM + NO_SOFTMAX + NO_KV_LOADS,
+}
+
+
+def flash_ablation() -> int:
+    """Where the bf16 attention kernel's time goes: builds copies of
+    ``csrc/flash_attention.cu`` with one part of the bf16 kernel's work
+    switched off (ABLATIONS) into ``build/ablation/`` and times each one, the
+    full kernel and SDPA at the bf16 shapes of FLASH_TIMED.  The switched-off
+    copies compute wrong attention: they exist only to be timed."""
+    import ctypes
+
+    if not (SRC / "repro_torch").is_dir():
+        raise SystemExit(f"chip_smoke.py: no src/repro_torch beside {__file__}")
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: CUDA is not available")
+    print(nvidia_smi())
+    source = (build.CSRC / "flash_attention.cu").read_text()
+    out = build.BUILD_DIR / "ablation"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in ABLATIONS.items():
+        text = source
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"{name}: the kernel source no longer has {old!r}")
+            text = text.replace(old, new)
+        (out / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{report}")
+        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    for case in FLASH_TIMED:
+        name, dtype, B, S, T, H, K, D, causal, window, softcap = case
+        if dtype != "bfloat16":
+            continue
+        q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, T, K, D, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, T, K, D, generator=gen, device="cuda").bfloat16()
+        kw = dict(causal=causal, window=window, logit_softcap=softcap)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        bound, by = attention_bound_ms(case)
+        print(f"{name}: SDPA {sdpa:.4f} ms, bound {bound:.4f} ms ({by})")
+        for variant, lib in libs.items():
+            build._loaded["flash_attention"] = lib  # the wrapper launches this copy
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=50)
+            print(f"  {variant:22s} {ms:.4f} ms")
+    build._loaded.pop("flash_attention", None)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -963,9 +1123,14 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {name}: {line.strip()}")
+    # the bf16 attention kernel keeps its tiles in registers; a spill is a fault
+    spilled = {entry: n for entry, n in ptxas_spills(reports["flash_attention"]).items()
+               if "bf16" in entry and n != (0, 0)}
+    check(not spilled, f"flash_attention bf16 spills (stores, loads bytes): {spilled}")
 
     print("== kernels vs plain versions")
-    attn = check_attention_kernel()
+    attn_records = check_attention_kernel()
+    attn = attn_records[SLICE_CASE[0]]
     ssd = check_mamba_kernel()
     gmm = check_gmm_kernel()[GMM_SLICE[0]]
 
@@ -1017,6 +1182,8 @@ def main() -> int:
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
         "library_ms": attn["library_ms"],
+        # the same fields at mixtral's shape and at the slice shape in f32
+        **{name: rec for name, rec in attn_records.items() if name != SLICE_CASE[0]},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -1043,4 +1210,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(flash_ablation() if sys.argv[1:] == ["--flash-ablation"] else main())

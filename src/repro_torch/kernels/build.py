@@ -3,9 +3,10 @@
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the root of
 the checkout, at first use.  The library's file name carries a hash of its
-source, so an edited source is rebuilt and an unchanged one is reused.  Nothing
-here runs at import time: this module is imported on machines without a CUDA
-toolkit, where only the kernels' plain versions run.
+source and of the shared headers (``csrc/*.cuh``), so an edited source or
+header is rebuilt and an unchanged one is reused.  Nothing here runs at import
+time: this module is imported on machines without a CUDA toolkit, where only
+the kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -39,8 +40,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of the source
+    and of every header under ``csrc/``, so that editing a header it includes
+    rebuilds it too."""
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> dict[str, str]:

@@ -3,55 +3,432 @@
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention.py (pallas_call at :160).  It computes
-// exactly what that kernel computes:
+// what that kernel computes:
 //   q [B,S,H,D], k/v [B,T,K,D]; kv head = q head / (H/K);
 //   s = (q . k) * 1/sqrt(D), then softcap * tanh(s / softcap) if softcap > 0;
 //   mask: causal (k_pos <= q_pos) and window (q_pos - k_pos < window), with
-//   q and k positions both counted from 0; masked scores are -1e30;
-//   fp32 running max m, sum l and accumulator; p of masked entries is 0;
+//   q and k positions both counted from 0 (so S < T works);
+//   fp32 running max m, sum l and accumulator; p of masked entries is 0, even
+//   in a row that is masked throughout (its output is 0);
 //   out = acc / max(l, 1e-30), in q's dtype.
-//
-// Design.  The TPU kernel walks the kv blocks as the sequential innermost
-// grid axis and keeps m/l/acc in VMEM scratch.  Here one thread block owns
-// one (b*H + h, 64-row q tile) and loops over the 64-row K/V tiles of kv head
-// h / (H/K) itself, staging each tile in shared memory as fp32.  Tiles that
-// causality or the window mask entirely are skipped (the same test as the
-// TPU kernel); the diagonal tile and the ragged edge (k_pos >= T, rows past
-// S) are masked in place, so any S and T work without padding.  256 threads
-// form a 16 x 16 grid: thread (ty, tx) owns query rows 4*ty .. 4*ty+3, key
-// columns tx + 16*j of the score tile and output columns tx + 16*c of the
-// accumulator.  Row max and row sum reduce over the 16 lanes that share a
-// row with warp shuffles.  Products are fp32 FMA loops: right and simple
-// first; tensor-core (mma/wgmma) and TMA versions are later work.
 //
 // Bound.  At the serving slice's prefill shape (B 8, S = T = 512, H 16, K 8,
 // D 128, bf16, causal) q/k/v/o are 50.3 MB, 15.0 us at 3.35 TB/s; the causal
-// products are 8.6 GFLOP, 8.7 us at 989 TFLOP/s.  So the kernel's floor is
-// the memory bound, about 15 us.  This FMA version is bound instead by its
-// fp32 arithmetic and shared-memory reads; PERF.md has its measured time.
+// products are 8.6 GFLOP, 8.7 us at 989 TFLOP/s.  So the memory bounds it.
+//
+// bf16 design: FlashAttention-2's blocking on Hopper's asynchronous units.
+// One block, one warpgroup (4 warps), owns one (batch, q head) and one
+// 64-row q tile; each warp owns 16 query rows.  The grid puts the q tile on
+// its slow axis, last tile first, so the heavy causal tiles start first.  The
+// block walks the 64-row K/V tiles that causality and the window leave, from
+// the last one down:
+//  - Loads: thread 0 issues TMA copies (cp.async.bulk.tensor, ptx.cuh) of the
+//    Q tile and of K/V tiles into two bf16 stages of shared memory; an
+//    mbarrier a stage counts their bytes.  Tile j-1 is in flight while tile j
+//    is multiplied, one __syncthreads a tile.  The maps' 128/64/32-byte
+//    swizzle is the layout wgmma reads conflict-free, and TMA fills rows past
+//    S or T with zeros, so ragged edges need no branch.
+//  - Tensor cores: S = Q K^T and O += P V are wgmma m64nNk16 bf16 products
+//    with f32 accumulators, A from registers and B read from shared memory
+//    through descriptors (K k-major, V transposed).  Q is loaded once into
+//    registers (ldmatrix) as A fragments.
+//  - Softmax stays in registers: the score tile S, the running max and sum
+//    per row (a row's 64 scores are spread over the 4 lanes of a quad, which
+//    reduce the max with __shfl_xor_sync; the sum stays per lane until the
+//    end).  The exponent is ex2.approx with log2(e) folded into the scale.
+//    The causal, window and ragged-T mask is applied only to tiles that cross
+//    a boundary for the warp's rows; interior tiles take none.  A masked score
+//    is -inf and the running max of a row that has seen only masked scores is
+//    taken as 0, so every masked p is exactly 0.
+//  - P never leaves registers: the f32 score fragments are rounded to bf16
+//    and are the A fragments of the PV product.  This rounds P to bf16 where
+//    the TPU kernel keeps it f32 (repro/kernels/flash_attention.py:87-91), as
+//    the port's own attend_xla does (models/attention.py:77-78); the row sum l
+//    is taken from the unrounded p.  On the card the kernel stays within one
+//    bf16 step of the output of attention_ref (PERF.md).
+//  - The output tile is written through shared memory, in 16-byte stores.
+// Measured (chip_smoke.py, H100 80GB HBM3 at 700 W): 0.038 ms at the shape
+// above, 40 % of its bound, against SDPA's 0.033 ms; the first design (fp32
+// FMA loops) took 0.72 ms.  Each block's load of Q and its first K/V tile
+// and its store of O take most of it, and the two blocks an SM do not
+// overlap them with the products and the softmax
+// (python3 chip_smoke.py --flash-ablation; PERF.md).
+//
+// f32 design.  TF32 tensor cores cannot hold the reference's f32 tolerance
+// of 2e-5, so f32 keeps the first design: one 256-thread block per (b*H + h,
+// 64-row q tile), K/V tiles staged in shared memory as f32, products as fp32
+// FMA loops on a 16 x 16 thread grid (4 query rows and 4 key columns a
+// thread), P through shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "ptx.cuh"
 
 namespace {
 
+constexpr float NEG_INF = -1e30f;
+
+// ------------------------------------------------------------- bf16, wgmma
+constexpr int TC_THREADS = 128;  // one warpgroup: 4 warps, 16 q rows each
+constexpr int TC_BM = 64;        // q rows a block: one m64 wgmma
+constexpr int TC_BN = 64;        // kv rows a tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A staged tile: 64 rows of D bf16, cut into slabs of RB-byte rows (RB =
+// min(2 D, 128)) whose 16-byte chunks are swizzled as TMA writes them with
+// the map's swizzle mode and as wgmma reads them.
+template <int D>
+struct TcTile {
+  static constexpr int RB = 2 * D < 128 ? 2 * D : 128;
+  static constexpr int SWZ = RB == 128 ? 3 : RB == 64 ? 2 : 1;  // row bits XORed into the chunk
+  static constexpr int SWIZZLE = 4 - SWZ;  // wgmma_desc's mode: 1 for 128 B rows, 3 for 32 B
+  static constexpr int SLAB = TC_BN * RB;                           // bytes of a slab
+  static constexpr int BYTES = TC_BN * D * 2;
+  static constexpr int PITCH = D + 8;  // bf16 elements a row of the staged O tile
+  // two stages of K and V (Q and O pass through them); 1 KB to align the
+  // tiles to the swizzle atoms
+  static constexpr size_t SMEM_BYTES = 4 * BYTES + 1024;
+};
+
+// Byte offset of (row r, column c) in a staged tile, c a multiple of 8: the
+// 16-byte chunk index is XORed with row bits (Swizzle<SWZ,4,3>).
+template <int D>
+__device__ __forceinline__ int tile_off(int r, int c) {
+  using TT = TcTile<D>;
+  const int chunk = c / 8, per_row = TT::RB / 16;
+  const int lin = (chunk / per_row) * TT::SLAB + r * TT::RB + (chunk % per_row) * 16;
+  return lin ^ (((lin >> 7) & ((1 << TT::SWZ) - 1)) << 4);
+}
+
+// Copies rows `row` .. `row` + 63 of head `head` of batch `b` as a tile at
+// `dst`, one TMA box a slab; rows past the tensor's end arrive as zeros.
+template <int D>
+__device__ __forceinline__ void tma_tile(char* dst, const CUtensorMap* map, int head, int row,
+                                         int b, uint64_t* bar) {
+  using TT = TcTile<D>;
+#pragma unroll
+  for (int slab = 0; slab < 2 * D / TT::RB; ++slab)
+    ptx::tma_load_4d(dst + slab * TT::SLAB, map, slab * TT::RB / 2, head, row, b, bar);
+}
+
+// S (64 x 64) = Q K^T over D, K read k-major from the staged tile.
+template <int D>
+__device__ __forceinline__ void qk_wgmma(float (&s)[32], const uint32_t (&qf)[D / 16][4],
+                                         const char* k_tile) {
+  using TT = TcTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ptx::wgmma_m64n64k16<0>(
+        s, qf[kk],
+        ptx::wgmma_desc(k_tile + (32 * kk / TT::RB) * TT::SLAB + 32 * kk % TT::RB, 16,
+                        8 * TT::RB, TT::SWIZZLE),
+        kk > 0);
+}
+
+// O (64 x D) += P (64 x 16) V (16 x D), V read n-major (transposed) from the
+// staged tile at its row `k0`.  At D 64 it runs as two n32 halves: a single
+// transposed m64n64k16 beside the k-major m64n64k16 of S gave wrong sums on
+// the card (two kv tiles or more), which the n32 halves do not.
+template <int D>
+__device__ __forceinline__ void pv_wgmma(float (&acc)[D / 2], const uint32_t (&pf)[4],
+                                         const char* v_tile, int k0) {
+  using TT = TcTile<D>;
+  const uint64_t desc =
+      ptx::wgmma_desc(v_tile + k0 * TT::RB, TT::SLAB, 8 * TT::RB, TT::SWIZZLE);
+  if constexpr (D == 64) {
+    ptx::wgmma_m64n32k16<1>(*reinterpret_cast<float(*)[16]>(&acc[0]), pf, desc, 1);
+    ptx::wgmma_m64n32k16<1>(*reinterpret_cast<float(*)[16]>(&acc[16]), pf, desc + (64 >> 4), 1);
+  } else if constexpr (D == 16) {
+    ptx::wgmma_m64n16k16<1>(acc, pf, desc, 1);
+  } else if constexpr (D == 32) {
+    ptx::wgmma_m64n32k16<1>(acc, pf, desc, 1);
+  } else {
+    ptx::wgmma_m64n128k16<1>(acc, pf, desc, 1);
+  }
+}
+
+// 2 blocks (8 warps) an SM: at 3, D 128 would be held to 168 registers and spill
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, int S, int T_len, int H, int K,
+                            int causal, int window, float softcap, float sm_scale,
+                            const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map) {
+  using TT = TcTile<D>;
+  constexpr int KD = D / 16;     // 16-deep steps over D
+  constexpr int NT = TC_BN / 8;  // 8-wide score column tiles
+  static_assert(TC_BM * TT::PITCH * 2 <= 2 * TT::BYTES, "the O tile is staged in one stage");
+  __shared__ __align__(8) uint64_t landed[2];  // stage s's tiles have landed
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  char* smem = reinterpret_cast<char*>(smem_raw) + (1024 - ptx::smem_addr(smem_raw) % 1024) % 1024;
+  // stage s: K tile at smem + 2 s BYTES, V tile right after it
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;  // heavy causal tiles first
+
+  // the kv tiles with an unmasked pair for some row of this q tile
+  const int q_last = min(q0 + TC_BM, S) - 1;
+  int j_hi = (T_len - 1) / TC_BN;
+  if (causal) j_hi = min(j_hi, q_last / TC_BN);
+  int j_lo = 0;
+  if (window > 0 && q0 - window - TC_BN + 1 >= 0) j_lo = (q0 - window - TC_BN + 1) / TC_BN + 1;
+
+  // thread 0 issues every copy: Q through stage 1, the first K/V tile into
+  // stage 0, each stage's arrival counted on its barrier
+  if (tid == 0) {
+    ptx::mbar_init(&landed[0], 1);
+    ptx::mbar_init(&landed[1], 1);
+    ptx::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    ptx::mbar_expect_tx(&landed[1], TT::BYTES);
+    tma_tile<D>(smem + 2 * TT::BYTES, &q_map, h, q0, b, &landed[1]);
+    if (j_lo <= j_hi) {
+      ptx::mbar_expect_tx(&landed[0], 2 * TT::BYTES);
+      tma_tile<D>(smem, &k_map, kh, j_hi * TC_BN, b, &landed[0]);
+      tma_tile<D>(smem + TT::BYTES, &v_map, kh, j_hi * TC_BN, b, &landed[0]);
+    }
+  }
+  ptx::mbar_wait(&landed[1], 0);  // Q has landed
+
+  // this warp's 16 q rows as A fragments: matrices rows +0-7 / cols +0,
+  // rows +8-15 / +0, rows +0-7 / +8, rows +8-15 / +8
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ptx::ldmatrix_x4(qf[kk], smem + 2 * TT::BYTES +
+                                 tile_off<D>(warp * 16 + lane % 16, kk * 16 + (lane / 16) * 8));
+
+  float acc[D / 8][4];  // O: 16 rows x D a warp, 8-wide column tiles
+  float(&acc_flat)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&acc[0][0]);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_flat[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of the warp's 16
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+
+  // without softcap the scale folds into the exponent; with it, it is applied
+  // inside the tanh and the exponent takes log2(e) alone
+  const float scale_log2 = softcap > 0.f ? LOG2E : sm_scale * LOG2E;
+  const int wq0 = q0 + warp * 16;   // the warp's first q row
+  const int row0 = wq0 + lane / 4;  // this lane's rows: row0, row0 + 8
+
+  int stage = 0;
+  for (int j = j_hi; j >= j_lo; --j, stage ^= 1) {
+    // stage 1 completed once for Q, so its i-th tile (i = j_hi - j odd) completes
+    // phase ((i + 1) / 2) & 1; stage 0's (i even) phase (i / 2) & 1
+    ptx::mbar_wait(&landed[stage], ((j_hi - j + stage) >> 1) & 1);  // tile j has landed
+    __syncthreads();  // nobody reads the other stage (or Q) any more
+    if (j > j_lo && tid == 0) {
+      char* nxt = smem + 2 * (stage ^ 1) * TT::BYTES;
+      ptx::mbar_expect_tx(&landed[stage ^ 1], 2 * TT::BYTES);
+      tma_tile<D>(nxt, &k_map, kh, (j - 1) * TC_BN, b, &landed[stage ^ 1]);
+      tma_tile<D>(nxt + TT::BYTES, &v_map, kh, (j - 1) * TC_BN, b, &landed[stage ^ 1]);
+    }
+    const char* ks = smem + 2 * stage * TT::BYTES;
+    const char* vs = ks + TT::BYTES;
+    const int k0 = j * TC_BN;
+
+    // S = Q K^T: 64 x 64, the warp's 16 rows in its fragments
+    float s[NT][4];
+    float(&s_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&s[0][0]);
+    ptx::wgmma_fence();
+    qk_wgmma<D>(s_flat, qf, ks);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<0>();
+    ptx::fence_regs(s_flat);
+
+    if (softcap > 0.f) {
+      const float inv = sm_scale / softcap;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = softcap * tanhf(s[nt][e] * inv);
+    }
+
+    // mask only a tile that crosses the ragged T edge, the diagonal or the
+    // window's edge for some row of this warp
+    const bool edge = k0 + TC_BN > T_len || (causal && k0 + TC_BN - 1 > wq0) ||
+                      (window > 0 && wq0 + 15 - k0 >= window);
+    if (edge) {
+      // column c of the tile (key k0 + c) is kept for row i when lo[i] <= c <= hi[i]
+      const int c0 = 2 * (lane % 4);
+      int lo[2], hi[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rel = row0 + 8 * i - k0;
+        hi[i] = min(T_len - k0 - 1, causal ? rel : TC_BN);
+        lo[i] = window > 0 ? rel - window + 1 : 0;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + nt * 8 + (e & 1);
+          if (c < lo[e >> 1] || c > hi[e >> 1]) s[nt][e] = -INFINITY;
+        }
+    }
+
+    // online softmax; entries 2i, 2i+1 of each fragment belong to row i
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // a row with only masked scores so far keeps max -inf; taking it as 0
+      // makes every exp2(-inf - 0) exactly 0 instead of exp2(-inf + inf)
+      const float m_scaled = mx == -INFINITY ? 0.f : mx * scale_log2;
+      const float alpha = ptx::exp2_approx(m[i] * scale_log2 - m_scaled);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          s[nt][e] = ptx::exp2_approx(fmaf(s[nt][e], scale_log2, -m_scaled));
+          sum += s[nt][e];
+        }
+      l[i] = alpha * l[i] + sum;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        acc[dt][2 * i] *= alpha;
+        acc[dt][2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P as bf16 A fragments straight from the score fragments
+    uint32_t pf[TC_BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) {
+      pf[kk][0] = ptx::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[kk][1] = ptx::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[kk][2] = ptx::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[kk][3] = ptx::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    ptx::fence_regs(acc_flat);
+    ptx::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(acc_flat, pf[kk], vs, 16 * kk);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<0>();
+    ptx::fence_regs(acc_flat);
+  }
+
+  // out = acc / max(l, 1e-30), staged through stage 0 in padded rows and
+  // stored 16 bytes a thread
+  __syncthreads();  // every warp is done with the last stage
+  __nv_bfloat16* o_tile = reinterpret_cast<__nv_bfloat16*>(smem);
+  constexpr int PITCH = TT::PITCH;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int r = warp * 16 + lane / 4 + 8 * i;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(o_tile + r * PITCH + dt * 8 + 2 * (lane % 4)) =
+          ptx::pack_bf16(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
+  }
+  __syncthreads();
+  constexpr int CHUNKS = D / 8;
+  __nv_bfloat16* ob = o + ((long)b * S + q0) * H * D + (long)h * D;
+  for (int c = tid; c < TC_BM * CHUNKS; c += TC_THREADS) {
+    const int r = c / CHUNKS, col = 8 * (c % CHUNKS);
+    if (q0 + r < S)
+      *reinterpret_cast<uint4*>(ob + (long)r * H * D + col) =
+          *reinterpret_cast<const uint4*>(o_tile + r * PITCH + col);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// library links no libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+    if (err != cudaSuccess) return err;
+    if (ptr == nullptr || status != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// The TMA map of x [B, rows, heads, D] bf16: a box is one slab (RB bytes of
+// d) of one head over 64 rows, swizzled as TcTile<D> lays it out.
+template <int D>
+cudaError_t tile_map(CUtensorMap* map, EncodeTiled encode, const void* x, int B, int rows,
+                     int heads) {
+  using TT = TcTile<D>;
+  const CUtensorMapSwizzle swizzle = TT::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : TT::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {TT::RB / 2, 1, TC_BN, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // zeros outside
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
+                        int T_len, int H, int K, int causal, int window, float softcap,
+                        cudaStream_t stream) {
+  // TMA and the 16-byte output stores need 16-byte aligned rows
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return cudaErrorMisalignedAddress;
+  EncodeTiled encode;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err;
+  if ((err = encode_tiled(&encode)) != cudaSuccess ||
+      (err = tile_map<D>(&q_map, encode, q, B, S, H)) != cudaSuccess ||
+      (err = tile_map<D>(&k_map, encode, k, B, T_len, K)) != cudaSuccess ||
+      (err = tile_map<D>(&v_map, encode, v, B, T_len, K)) != cudaSuccess)
+    return err;
+  const size_t smem = TcTile<D>::SMEM_BYTES;
+  err = cudaFuncSetAttribute(flash_attention_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const float sm_scale = (float)(1.0 / sqrt((double)D));
+  const dim3 grid(B * H, (S + TC_BM - 1) / TC_BM);
+  flash_attention_bf16_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<__nv_bfloat16*>(o), S, T_len, H, K, causal, window, softcap, sm_scale, q_map,
+      k_map, v_map);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ f32, FMA
 constexpr int BLOCK_Q = 64;
 constexpr int BLOCK_K = 64;
 constexpr int THREADS = 256;            // a 16 x 16 thread grid
 constexpr int ROWS = BLOCK_Q / 16;      // query rows per thread
 constexpr int COLS = BLOCK_K / 16;      // key columns per thread
 constexpr int P_PITCH = BLOCK_K + 4;    // keeps P's writes and reads conflict-free
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Reductions over the 16 lanes that hold one query row (lanes 0-15 or 16-31).
 __device__ __forceinline__ float row_max(float x) {
@@ -64,23 +441,23 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Copies a 64-row tile of D elements per row (global row stride `stride`)
-// into shared memory as fp32 with row pitch `pitch`.  Rows at or past
-// `valid` (the ragged edge) are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src, long stride,
+// into shared memory with row pitch `pitch`.  Rows at or past `valid` (the
+// ragged edge) are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int pitch, const float* src, long stride,
                                           int valid) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
-    dst[r * pitch + c] = r < valid ? to_f32(src[r * stride + c]) : 0.f;
+    dst[r * pitch + c] = r < valid ? src[r * stride + c] : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S, int T_len,
-                       int H, int K, int causal, int window, float softcap,
-                       float sm_scale) {
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o, int S, int T_len,
+                           int H, int K, int causal, int window, float softcap,
+                           float sm_scale) {
   constexpr int KP = D + 1;   // padded pitch: 16 lanes read 16 K rows at one column
   constexpr int DC = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -95,12 +472,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BLOCK_Q;
   const long q_stride = (long)H * D;   // elements between consecutive positions
   const long kv_stride = (long)K * D;
-  const T* qb = q + ((long)b * S + q0) * q_stride + (long)h * D;
-  const T* kb = k + (long)b * T_len * kv_stride + (long)kh * D;
-  const T* vb = v + (long)b * T_len * kv_stride + (long)kh * D;
-  T* ob = o + ((long)b * S + q0) * q_stride + (long)h * D;
+  const float* qb = q + ((long)b * S + q0) * q_stride + (long)h * D;
+  const float* kb = k + (long)b * T_len * kv_stride + (long)kh * D;
+  const float* vb = v + (long)b * T_len * kv_stride + (long)kh * D;
+  float* ob = o + ((long)b * S + q0) * q_stride + (long)h * D;
 
-  load_tile<T, D>(qs, KP, qb, q_stride, S - q0);
+  load_tile<D>(qs, KP, qb, q_stride, S - q0);
 
   float m[ROWS], l[ROWS], acc[ROWS][DC];
 #pragma unroll
@@ -119,8 +496,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (window > 0 && q0 - (k0 + BLOCK_K - 1) >= window) continue;
 
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<T, D>(ks, KP, kb + k0 * kv_stride, kv_stride, T_len - k0);
-    load_tile<T, D>(vs, D, vb + k0 * kv_stride, kv_stride, T_len - k0);
+    load_tile<D>(ks, KP, kb + k0 * kv_stride, kv_stride, T_len - k0);
+    load_tile<D>(vs, D, vb + k0 * kv_stride, kv_stride, T_len - k0);
     __syncthreads();
 
     float s[ROWS][COLS];
@@ -194,36 +571,33 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (q0 + r >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) ob[r * q_stride + tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
+    for (int c = 0; c < DC; ++c) ob[r * q_stride + tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                   int H, int K, int causal, int window, float softcap, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
+                       int T_len, int H, int K, int causal, int window, float softcap,
+                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * 64 * (D + 1) + BLOCK_K * D + BLOCK_Q * P_PITCH);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float sm_scale = (float)(1.0 / sqrt((double)D));
   const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, B * H);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, T_len, H, K, causal, window, softcap, sm_scale);
+  flash_attention_f32_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, T_len, H, K, causal, window, softcap, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void* o, int B, int S,
-                              int T_len, int H, int K, int D, int causal, int window,
-                              float softcap, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, T_len, H, K, causal, window, softcap, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, T_len, H, K, causal, window, softcap, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, T_len, H, K, causal, window, softcap, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, T_len, H, K, causal, window, softcap, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, int B,
+                   int S, int T_len, int H, int K, int causal, int window, float softcap,
+                   cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, B, S, T_len, H, K, causal, window, softcap, stream);
+  return launch_bf16<D>(q, k, v, o, B, S, T_len, H, K, causal, window, softcap, stream);
 }
 
 }  // namespace
@@ -235,14 +609,15 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void*
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                    int S, int T_len, int H, int K, int D, int causal,
                                    int window, float softcap, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0 || B * H > 65535)
+  if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0 || B * H > 65535 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_head_dim<float>(q, k, v, o, B, S, T_len, H, K, D, causal, window,
-                                         softcap, st);
-  if (dtype == 1)
-    return (int)dispatch_head_dim<__nv_bfloat16>(q, k, v, o, B, S, T_len, H, K, D, causal,
-                                                 window, softcap, st);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return (int)launch<16>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    case 32: return (int)launch<32>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    case 64: return (int)launch<64>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    case 128: return (int)launch<128>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

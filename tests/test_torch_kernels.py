@@ -3,8 +3,8 @@
 The port's plain version (``repro_torch.kernels.ref.attention_ref``) and its
 CPU route of ``repro_torch.kernels.ops.flash_attention`` are held against the
 JAX oracle ``repro.kernels.ref.attention_ref`` and the Pallas kernel run in
-interpret mode, over the grid of ``tests/kernels/test_kernels.py`` plus a
-ragged length.  The CUDA kernel itself runs only on the card; ``chip_smoke.py``
+interpret mode, over the grid of ``tests/kernels/test_kernels.py`` plus
+ragged lengths and a grouped, softcapped D 128 case.  The CUDA kernel itself runs only on the card; ``chip_smoke.py``
 holds it against the plain version there.
 """
 
@@ -34,6 +34,11 @@ CASES = [
     (1, 128, 2, 2, 64, True, None, 30.0),     # logit softcap
     (1, 64, 8, 2, 128, True, None, None),     # head_dim 128
     (2, 100, 4, 2, 16, True, None, None),     # ragged length, head_dim 16
+    # what the bf16 tensor-core kernel's edge cases rest on: a length that is
+    # not a multiple of 16 under a window, and 4 q heads a kv head at D 128
+    # with softcap
+    (1, 37, 4, 2, 64, True, 16, None),        # S 37, window 16
+    (1, 128, 8, 2, 128, True, None, 30.0),    # G 4, head_dim 128, softcap
 ]
 
 
