@@ -8,13 +8,14 @@ Phases, each of which raises on failure (a non-zero exit):
 
 1. device   - the card's name and power limit; TF32 off for the comparisons;
 2. build    - compiles the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-              into ``build/``, one nvcc per source, started together; the
-              bf16 attention kernel must not spill;
+              into ``build/``, one nvcc per source, started together, and
+              prints each kernel's registers, shared memory and spills; no
+              bf16 kernel of the three may spill;
 3. kernels  - each kernel's wrapper against its plain PyTorch version on the
-              card, at its path's shape and at edge cases, with times of the
-              kernel, the plain version, the PyTorch library call that
-              computes the same function (where one exists) and the card's
-              bound;
+              card, at its path's shape and at edge cases, with the route
+              each case takes and times of the kernel, the plain version, the
+              PyTorch library call that computes the same function (where
+              one exists) and the card's bound;
 4. serve    - full-width, full-depth internlm2-1.8b (random weights from a
               seed, bf16 compute, attention_impl="flash") serves 16 requests
               through BatchAccumulator and ServeEngine; flash_attention must
@@ -44,10 +45,13 @@ The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-ablation
+    python3 chip_smoke.py --scan-ablation
 
-times the bf16 attention kernel with its products, its softmax or its K/V
-loads switched off, beside the full kernel and SDPA: where its time goes.
-It needs CUDA and the repository's ``src/``; without either it exits non-zero.
+time the bf16 attention kernel with its products, its softmax or its K/V
+loads switched off, beside the full kernel and SDPA, and the bf16 scan with
+its inter term, intra term or state update switched off, beside the full
+kernel and the eager ssd_chunked: where their time goes.  They need CUDA and
+the repository's ``src/``; without either they exit non-zero.
 """
 
 from __future__ import annotations
@@ -262,19 +266,46 @@ def check_attention_kernel() -> dict:
     return records
 
 
-def ptxas_spills(report: str) -> dict[str, tuple[int, int]]:
-    """Spill stores and loads in bytes by (mangled) entry function, from
-    nvcc's -Xptxas -v report."""
-    spills, entry = {}, None
+def ptxas_usage(report: str) -> dict[str, dict]:
+    """Registers, static shared memory and spill stores and loads (bytes) by
+    (mangled) entry function, from nvcc's -Xptxas -v report."""
+    usage, entry = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
+            usage[entry] = {"registers": 0, "smem": 0, "spills": (0, 0)}
         elif (found := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            spills[entry] = (int(found[1]), int(found[2]))
-    return spills
+            usage[entry]["spills"] = (int(found[1]), int(found[2]))
+        elif (found := re.search(r"Used (\d+) registers", line)):
+            usage[entry]["registers"] = int(found[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[entry]["smem"] = int(smem[1]) if smem else 0
+    return usage
+
+
+# the bf16 kernels of the three (the tensor-core ones keep their tiles in
+# registers): a spill is a fault
+NO_SPILL_ENTRIES = ("flash_attention_bf16_kernel", "gmm_tma_kernel", "gmm_bf16_kernel",
+                    "mamba_scan_tc_kernel", "mamba_scan_kernel<bfloat16>")
+
+
+def kernel_name(entry: str) -> str:
+    """A mangled entry's kernel name (the <length><name> that ends in
+    ``_kernel``) and its template argument, for printing."""
+    for found in re.finditer(r"\d+", entry):
+        digits, end = found.group(), found.end()
+        for i in range(len(digits)):
+            n = int(digits[i:])
+            name = entry[end:end + n]
+            if len(name) == n and name.endswith("_kernel"):
+                arg = re.match(r"I(?:Li)?(\d+|f|13__nv_bfloat16)E", entry[end + n:])
+                return f"{name}<{arg[1].replace('13__nv_', '')}>" if arg else name
+    return entry
 
 
 # name, dtype, B, S, H, P, N, chunk, dt shift (softplus(randn + shift)), strided
+# (True: views of one packed tensor, as the model gives them; "odd": the same
+# with one more column, so rows are not 16-byte multiples)
 SSD_SLICE = ("slice", "bfloat16", 8, 512, 112, 64, 64, 128, 0.0, True)
 SSD_EDGE_CASES = [
     ("slice_f32", "float32", 8, 512, 112, 64, 64, 128, 0.0, True),
@@ -293,28 +324,34 @@ SSD_EDGE_CASES = [
     ("batch1", "bfloat16", 1, 384, 112, 64, 64, 128, 0.0, True),
     ("strong_decay", "float32", 2, 256, 8, 64, 64, 128, 4.0, True),
     ("p128_n128", "float32", 1, 160, 4, 128, 128, 64, 0.0, True),
+    # bf16 rows that cp.async cannot copy 16 bytes at a time: the FMA route
+    ("odd_stride", "bfloat16", 2, 200, 16, 64, 64, 128, 0.0, "odd"),
 ]
+# the bf16 cases whose shapes and strides the tensor-core route takes
+SSD_TC_CASES = ("slice", "ragged100", "ragged200", "s_lt_chunk", "chunk16", "chunk32", "chunk64",
+                "batch1")
 
 
 def ssd_inputs(case, gen):
-    """xh, dt, A, Bm, Cm on the card.  A differs by head.  With ``strided``,
+    """xh, dt, A, Bm, Cm on ``gen``'s device.  A differs by head.  With ``strided``,
     xh, Bm and Cm are views of one [B,S,H*P+2N] tensor, as the model's split
-    of the conv output gives them."""
+    of the conv output gives them ([B,S,H*P+2N+1] for "odd")."""
     import torch
     import torch.nn.functional as F
 
     _, dtype, B, S, H, P, N, _, shift, strided = case
-    dt_ = getattr(torch, dtype)
-    dt = F.softplus(torch.randn(B, S, H, generator=gen, device="cuda") + shift)
-    A = -torch.exp(torch.randn(H, generator=gen, device="cuda"))
+    dt_, dev = getattr(torch, dtype), gen.device
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev) + shift)
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev))
     if strided:
-        packed = torch.randn(B, S, H * P + 2 * N, generator=gen, device="cuda").to(dt_)
-        xs, Bm, Cm = torch.split(packed, [H * P, N, N], dim=-1)
+        extra = int(strided == "odd")
+        packed = torch.randn(B, S, H * P + 2 * N + extra, generator=gen, device=dev).to(dt_)
+        xs, Bm, Cm, _ = torch.split(packed, [H * P, N, N, extra], dim=-1)
         xh = xs.reshape(B, S, H, P)
     else:
-        xh = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dt_)
-        Bm = torch.randn(B, S, N, generator=gen, device="cuda").to(dt_)
-        Cm = torch.randn(B, S, N, generator=gen, device="cuda").to(dt_)
+        xh = torch.randn(B, S, H, P, generator=gen, device=dev).to(dt_)
+        Bm = torch.randn(B, S, N, generator=gen, device=dev).to(dt_)
+        Cm = torch.randn(B, S, N, generator=gen, device=dev).to(dt_)
     return xh, dt, A, Bm, Cm
 
 
@@ -348,8 +385,8 @@ def kernel_tolerance(dtype: str, expected) -> dict:
 
 def check_mamba_kernel() -> dict:
     """mamba_scan against mamba_scan_ref at the slice shape and edge cases;
-    prints each case's max|err|, RMS|ref| and margin (the largest
-    |err| / (atol + rtol |ref|), at most 1 to pass)."""
+    prints each case's route and its shared memory, max|err|, RMS|ref| and
+    margin (the largest |err| / (atol + rtol |ref|), at most 1 to pass)."""
     import torch
 
     from repro_torch.kernels import mamba_scan as ms
@@ -361,6 +398,10 @@ def check_mamba_kernel() -> dict:
     for case in [SSD_SLICE] + SSD_EDGE_CASES:
         name, dtype, B, S, H, P, N, chunk, shift, strided = case
         xh, dt, A, Bm, Cm = ssd_inputs(case, gen)
+        path = ms.route(xh, Bm, Cm, chunk)
+        want = "tensor_core" if name in SSD_TC_CASES else "fma"
+        check(path == want, f"mamba_scan {name} takes the {path} route, want {want}")
+        smem = ms.smem_bytes(ms.kernel_chunk(chunk, S, path), P, N, path)
         out = ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=chunk)
         torch.cuda.synchronize()
         expected, _ = ref.mamba_scan_ref(xh, dt, A, Bm, Cm)
@@ -372,13 +413,14 @@ def check_mamba_kernel() -> dict:
         rms = expected.float().square().mean().sqrt().item()
         margin = (diff / (tol["atol"] + tol["rtol"] * expected.float().abs())).max().item()
         print(f"  mamba_scan {name:12s} {dtype:8s} B{B} S{S} H{H} P{P} N{N} chunk{chunk} "
-              f"dt shift {shift} strided={strided}: max|err| {err:.3e}, RMS|ref| {rms:.3e}, "
+              f"dt shift {shift} strided={strided}: route {path} ({smem} bytes of shared "
+              f"memory), max|err| {err:.3e}, RMS|ref| {rms:.3e}, "
               f"max|ref| {expected.float().abs().max().item():.3e}, rtol {tol['rtol']}, "
               f"atol {tol['atol']:.3e}, margin {margin:.3f}")
         torch.testing.assert_close(out.float(), expected.float(), **tol,
                                    msg=lambda m, n=name: f"mamba_scan {n}: {m}")
         if case is SSD_SLICE:
-            record = {"max_abs_err": err}
+            record = {"max_abs_err": err, "kernel_route": path}
             record["ms"] = time_ms(lambda: ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=chunk))
             record["plain_ms"] = time_ms(lambda: ref.mamba_scan_ref(xh, dt, A, Bm, Cm),
                                          iters=5, warmup=1)
@@ -392,7 +434,7 @@ def check_mamba_kernel() -> dict:
                   f"ms, eager ssd_chunked {record['ssd_chunked_ms']:.4f} ms, bound "
                   f"{record['bound_ms']:.4f} ms ({record['bound_by']})")
     # the wrapper refuses a chunk whose tiles do not fit in shared memory
-    xh, dt, A, Bm, Cm = ssd_inputs(SSD_EDGE_CASES[-1], gen)
+    xh, dt, A, Bm, Cm = ssd_inputs(next(c for c in SSD_EDGE_CASES if c[0] == "p128_n128"), gen)
     try:
         ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=128)
     except ValueError:
@@ -413,6 +455,10 @@ GMM_TIMED = [
     ("mixtral_decode", "bfloat16", 8, 8, 4096, 14336, 8),
     ("qwen3_layer", "bfloat16", 256, 160, 4096, 1536, 128),
 ]
+# the bf16 cases that take the TMA + wgmma route: every model shape, and the
+# aligned cases whose ragged C and F exercise TMA's zero fill
+GMM_TMA_CASES = ("mixtral_eval_gate", "mixtral_eval_down", "mixtral_decode", "qwen3_layer",
+                 "serve_ragged", "c37_d96_f72", "e5_ew3")
 GMM_EDGE_CASES = [
     ("mixtral_eval_gate_f32", "float32", 16, 640, 4096, 14336, 8),
     # a serving prefill batch of 8 x 501 tokens: one group, C 1256 (ragged)
@@ -445,8 +491,8 @@ def gmm_bound_ms(case) -> tuple[float, str]:
 
 def check_gmm_kernel() -> dict:
     """gmm against gmm_ref at the path's shapes and edge cases, x ~ N(0, 1) and
-    w at std 1/sqrt(D), so outputs are O(1); prints each case's max|err|,
-    RMS|ref| and margin.  Returns the timed cases' records by name."""
+    w at std 1/sqrt(D), so outputs are O(1); prints each case's route,
+    max|err|, RMS|ref| and margin.  Returns the timed cases' records by name."""
     import torch
 
     from repro_torch.kernels import moe_gmm as mg
@@ -459,6 +505,10 @@ def check_gmm_kernel() -> dict:
         dt = getattr(torch, dtype)
         x = torch.randn(E, C, D, generator=gen, device="cuda").to(dt)
         w = (torch.randn(Ew, D, F, generator=gen, device="cuda") * D ** -0.5).to(dt)
+        path = mg.route(x, w)
+        want = ("tma_wgmma" if name in GMM_TMA_CASES
+                else "fma_f32" if dtype == "float32" else "wmma")
+        check(path == want, f"gmm {name} takes the {path} route, want {want}")
         out = mg.gmm(x, w)
         torch.cuda.synchronize()
         expected = ref.gmm_ref(x, w)
@@ -469,14 +519,15 @@ def check_gmm_kernel() -> dict:
         err = diff.max().item()
         rms = expected.float().square().mean().sqrt().item()
         margin = (diff / (tol["atol"] + tol["rtol"] * expected.float().abs())).max().item()
-        print(f"  gmm {name:21s} {dtype:8s} E{E} C{C} D{D} F{F} Ew{Ew}: max|err| {err:.3e}, "
+        print(f"  gmm {name:21s} {dtype:8s} E{E} C{C} D{D} F{F} Ew{Ew}: route {path}, "
+              f"max|err| {err:.3e}, "
               f"RMS|ref| {rms:.3e}, rtol {tol['rtol']}, atol {tol['atol']:.3e}, "
               f"margin {margin:.3f}")
         torch.testing.assert_close(out.float(), expected.float(), **tol,
                                    msg=lambda m, n=name: f"gmm {n}: {m}")
         del out, diff
         if case in GMM_TIMED:
-            rec = {"max_abs_err": err}
+            rec = {"max_abs_err": err, "kernel_route": path}
             rec["ms"] = time_ms(lambda: mg.gmm(x, w))
             rec["plain_ms"] = time_ms(lambda: ref.gmm_ref(x, w), iters=5, warmup=1)
             # the library yardstick: one batched matmul with w broadcast over
@@ -490,7 +541,7 @@ def check_gmm_kernel() -> dict:
             print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, torch.matmul "
                   f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
                   f"({rec['bound_by']}); kernel at {100 * rec['bound_ms'] / rec['ms']:.1f} % "
-                  f"of its bound")
+                  f"of its bound, {rec['ms'] / rec['library_ms']:.2f}x torch.matmul's time")
             records[name] = rec
         del x, w, expected
         torch.cuda.empty_cache()
@@ -996,8 +1047,8 @@ def smoke_model_card_vs_cpu(arch: str, kernel: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# python3 chip_smoke.py --flash-ablation: the attention kernel with parts of
-# its work switched off, by text substitution in a copy of its source
+# python3 chip_smoke.py --flash-ablation | --scan-ablation: a kernel with
+# parts of its work switched off, by text substitution in a copy of its source
 # ---------------------------------------------------------------------------
 
 NO_GEMM = [
@@ -1019,21 +1070,39 @@ NO_KV_LOADS = [
      "    if (j == j_hi) ptx::mbar_wait(&landed[stage], ((j_hi - j + stage) >> 1) & 1);"),
     ("    if (j > j_lo && tid == 0) {", "    if (j < -1 && tid == 0) {"),
 ]
-ABLATIONS = {
+FLASH_ABLATIONS = {
     "full": [],
     "no_products": NO_GEMM,
     "no_softmax": NO_SOFTMAX,
     "no_kv_loads": NO_KV_LOADS,
     "loads_and_stores_only": NO_GEMM + NO_SOFTMAX + NO_KV_LOADS,
 }
+# the tensor-core scan: its inter term (C . h), its intra term (C B^T, the
+# weights and W x) and its state update, each switched off; with all three
+# off, the chunks' loads, the cumsum, the barriers and the stores remain
+NO_INTER = [("      for (int kk = 0; kk < N / 16; ++kk) {\n        uint32_t a[4];\n"
+             "        ptx::ldmatrix_x4(a, c_row + 16 * kk);\n#pragma unroll\n        for (int cb",
+             "      for (int kk = 0; kk < N / 16 * (P < 0); ++kk) {\n        uint32_t a[4];\n"
+             "        ptx::ldmatrix_x4(a, c_row + 16 * kk);\n#pragma unroll\n        for (int cb")]
+NO_INTRA = [("      for (int j = 0; j <= r; ++j) {",
+             "      for (int j = 0; j <= r * (P < 0) - 1; ++j) {")]
+NO_STATE = [("n_tasks = c + 1 < n_chunks ? (P / 16) * n_blocks : 0", "n_tasks = 0")]
+SCAN_ABLATIONS = {
+    "full": [],
+    "no_inter": NO_INTER,
+    "no_intra": NO_INTRA,
+    "no_state": NO_STATE,
+    "loads_cumsum_stores": NO_INTER + NO_INTRA + NO_STATE,
+}
 
 
-def flash_ablation() -> int:
-    """Where the bf16 attention kernel's time goes: builds copies of
-    ``csrc/flash_attention.cu`` with one part of the bf16 kernel's work
-    switched off (ABLATIONS) into ``build/ablation/`` and times each one, the
-    full kernel and SDPA at the bf16 shapes of FLASH_TIMED.  The switched-off
-    copies compute wrong attention: they exist only to be timed."""
+def ablation(kernel: str) -> int:
+    """Where a bf16 kernel's time goes: builds copies of its source with one
+    part of its work switched off (FLASH_ABLATIONS for ``flash``,
+    SCAN_ABLATIONS for ``scan``) into ``build/ablation/`` and times each one
+    beside the full kernel, at the bf16 shapes of FLASH_TIMED with SDPA, or
+    at SSD_SLICE with the eager ssd_chunked.  The switched-off copies compute
+    wrong results: they exist only to be timed."""
     import ctypes
 
     if not (SRC / "repro_torch").is_dir():
@@ -1044,51 +1113,66 @@ def flash_ablation() -> int:
 
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models import ssm
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
     print(nvidia_smi())
-    source = (build.CSRC / "flash_attention.cu").read_text()
+    lib_name, table = (("flash_attention", FLASH_ABLATIONS) if kernel == "flash"
+                       else ("mamba_scan", SCAN_ABLATIONS))
+    source = (build.CSRC / f"{lib_name}.cu").read_text()
     out = build.BUILD_DIR / "ablation"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in ABLATIONS.items():
+    for name, subs in table.items():
         text = source
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"{name}: the kernel source no longer has {old!r}")
             text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
+        (out / f"{lib_name}_{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
-             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+             str(out / f"{lib_name}_{name}.so"), str(out / f"{lib_name}_{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         report = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{report}")
-        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+        libs[name] = ctypes.CDLL(str(out / f"{lib_name}_{name}.so"))
 
     gen = torch.Generator("cuda").manual_seed(0)
-    for case in FLASH_TIMED:
-        name, dtype, B, S, T, H, K, D, causal, window, softcap = case
-        if dtype != "bfloat16":
-            continue
-        q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(B, T, K, D, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(B, T, K, D, generator=gen, device="cuda").bfloat16()
-        kw = dict(causal=causal, window=window, logit_softcap=softcap)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        bound, by = attention_bound_ms(case)
-        print(f"{name}: SDPA {sdpa:.4f} ms, bound {bound:.4f} ms ({by})")
+    runs = []  # (case name, the yardstick's line, the kernel call)
+    if kernel == "flash":
+        for case in FLASH_TIMED:
+            name, dtype, B, S, T, H, K, D, causal, window, softcap = case
+            if dtype != "bfloat16":
+                continue
+            q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+            k = torch.randn(B, T, K, D, generator=gen, device="cuda").bfloat16()
+            v = torch.randn(B, T, K, D, generator=gen, device="cuda").bfloat16()
+            kw = dict(causal=causal, window=window, logit_softcap=softcap)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+            bound, by = attention_bound_ms(case)
+            runs.append((name, f"SDPA {sdpa:.4f} ms, bound {bound:.4f} ms ({by})",
+                         lambda q=q, k=k, v=v, kw=kw: fa.flash_attention(q, k, v, **kw)))
+    else:
+        chunk = SSD_SLICE[7]
+        xh, dt, A, Bm, Cm = ssd_inputs(SSD_SLICE, gen)
+        eager = time_ms(lambda: ssm.ssd_chunked(xh, dt, A, Bm, Cm, chunk))
+        bound, by = ssd_bound_ms(SSD_SLICE)
+        runs.append((SSD_SLICE[0], f"eager ssd_chunked {eager:.4f} ms, bound {bound:.4f} ms ({by})",
+                     lambda: ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=chunk)))
+    for name, yardstick, call in runs:
+        print(f"{name}: {yardstick}")
         for variant, lib in libs.items():
-            build._loaded["flash_attention"] = lib  # the wrapper launches this copy
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=50)
-            print(f"  {variant:22s} {ms:.4f} ms")
-    build._loaded.pop("flash_attention", None)
+            build._loaded[lib_name] = lib  # the wrapper launches this copy
+            print(f"  {variant:22s} {time_ms(call, iters=50):.4f} ms")
+    build._loaded.pop(lib_name, None)
     return 0
 
 
@@ -1119,20 +1203,22 @@ def main() -> int:
     reports = build.build("flash_attention", "mamba_scan", "moe_gmm")
     print(f"  built {[name for name, rep in reports.items() if rep]} in "
           f"{time.perf_counter() - t0:.1f} s")
+    spilled = {}
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  {name}: {line.strip()}")
-    # the bf16 attention kernel keeps its tiles in registers; a spill is a fault
-    spilled = {entry: n for entry, n in ptxas_spills(reports["flash_attention"]).items()
-               if "bf16" in entry and n != (0, 0)}
-    check(not spilled, f"flash_attention bf16 spills (stores, loads bytes): {spilled}")
+        for entry, use in ptxas_usage(report).items():
+            kernel = kernel_name(entry)
+            print(f"  {name}: {kernel:34s} {use['registers']:3d} registers, {use['smem']:6d} "
+                  f"bytes static shared memory, spills (stores, loads) {use['spills']} bytes")
+            if kernel.startswith(NO_SPILL_ENTRIES) and use["spills"] != (0, 0):
+                spilled[kernel] = use["spills"]
+    check(not spilled, f"bf16 kernels spill (stores, loads bytes): {spilled}")
 
     print("== kernels vs plain versions")
     attn_records = check_attention_kernel()
     attn = attn_records[SLICE_CASE[0]]
     ssd = check_mamba_kernel()
-    gmm = check_gmm_kernel()[GMM_SLICE[0]]
+    gmm_records = check_gmm_kernel()
+    gmm = gmm_records[GMM_SLICE[0]]
 
     print("== serve internlm2-1.8b")
     fa_launches = serve()
@@ -1175,7 +1261,7 @@ def main() -> int:
         check(serve_main(argv) == 0, f"launcher failed for {argv}")
 
     kernels = [{
-        "name": "flash_attention", "route": "cuda",
+        "name": "flash_attention", "route": "cuda", "kernel_route": "tma_wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
         "launches": fa_launches, "max_abs_err": attn["max_abs_err"],
@@ -1185,7 +1271,7 @@ def main() -> int:
         # the same fields at mixtral's shape and at the slice shape in f32
         **{name: rec for name, rec in attn_records.items() if name != SLICE_CASE[0]},
     }, {
-        "name": "mamba_scan", "route": "cuda",
+        "name": "mamba_scan", "route": "cuda", "kernel_route": ssd["kernel_route"],
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:82",
         "launches": ms_launches, "max_abs_err": ssd["max_abs_err"],
@@ -1193,13 +1279,15 @@ def main() -> int:
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None, "ssd_chunked_ms": ssd["ssd_chunked_ms"],
     }, {
-        "name": "gmm", "route": "cuda",
+        "name": "gmm", "route": "cuda", "kernel_route": gmm["kernel_route"],
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:46",
         "launches": gmm_launches, "max_abs_err": gmm["max_abs_err"],
         "ms": gmm["ms"], "plain_ms": gmm["plain_ms"],
         "bound_ms": gmm["bound_ms"], "bound_by": gmm["bound_by"],
         "library_ms": gmm["library_ms"],
+        # the same fields at the other timed shapes
+        **{name: rec for name, rec in gmm_records.items() if name != GMM_SLICE[0]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1210,4 +1298,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(flash_ablation() if sys.argv[1:] == ["--flash-ablation"] else main())
+    ablations = {"--flash-ablation": "flash", "--scan-ablation": "scan"}
+    sys.exit(ablation(ablations[sys.argv[1]]) if sys.argv[1:] and sys.argv[1] in ablations
+             else main())

@@ -128,11 +128,14 @@ def test_ops_routes_cpu_tensors_to_the_plain_version():
 
 
 def test_kernel_shared_memory_fits_at_the_model_shapes():
-    """zamba2-7b (P = N = 64, chunk 128) and its SMOKE cut fit one block; P = N
-    = 128 fits at chunk 64 but not 128, which the wrapper refuses."""
+    """zamba2-7b (P = N = 64, chunk 128) fits one block on both routes, its
+    SMOKE cut on the FMA route; P = N = 128 fits the FMA route at chunk 64
+    but neither route at 128, which the wrapper refuses."""
     for P, N, chunk in ((64, 64, 128), (8, 8, 16), (128, 128, 64)):
-        assert ms_kernel.smem_bytes(chunk, P, N) <= ms_kernel.SMEM_LIMIT
-    assert ms_kernel.smem_bytes(128, 128, 128) > ms_kernel.SMEM_LIMIT
+        assert ms_kernel.smem_bytes(chunk, P, N, "fma") <= ms_kernel.SMEM_LIMIT
+    assert ms_kernel.smem_bytes(128, 64, 64, "tensor_core") <= ms_kernel.SMEM_LIMIT
+    for path in ("fma", "tensor_core"):
+        assert ms_kernel.smem_bytes(128, 128, 128, path) > ms_kernel.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
