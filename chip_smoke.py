@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch port's serving and evaluation paths on one NVIDIA GPU and
-checks them.
+"""Runs the PyTorch port's serving, evaluation and training paths on one NVIDIA
+GPU and checks them.
 
     python3 chip_smoke.py
 
@@ -39,10 +39,28 @@ Phases, each of which raises on failure (a non-zero exit):
               input (gmm 3 launches a call), and a mixtral SMOKE model on the
               card held against the CPU;
 8. launcher - ``repro_torch.launch.serve.main`` for internlm2-1.8b, zamba2-7b
-              and mixtral-8x7b.
+              and mixtral-8x7b;
+9. phi3-mini-3.8b - full width and depth (32 heads of 96, f32 params drawn
+              from seed 0, bf16 compute, "flash"): one prefill batch of 8 x 512
+              launches flash_attention 32 times, and its logits are held
+              against attend_xla at internlm2's limits;
+10. train   - full-width, full-depth internlm2-1.8b (1.889 B params, f32
+              params and AdamW state, bf16 compute, "xla", remat "full", the
+              config's own; weights drawn from seed 0) takes 5 steps of
+              make_train_step on 8 x 512 SyntheticTokens batches: finite
+              losses that fall, no kernel launched (training runs the plain
+              routes, as in the reference), step ms, tokens/s, model FLOP/s,
+              peak memory, one step without remat and one saving the
+              projections, a one-step profile; at 2 layers in f32 one step
+              with microbatches=1 against microbatches=2; the training flow
+              (FlowsService -> ap://compute -> TrainingFabric, 2 layers, a
+              NodeFailure caught and restored from a checkpoint, checkpoint
+              bytes and save and restore seconds); the training launcher at
+              SMOKE; and a backward through each kernel route, which raises.
 
-The last three lines of standard output are the kernels' JSON record, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last four lines of standard output are the training phase's JSON record,
+the kernels' JSON record, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-ablation
     python3 chip_smoke.py --scan-ablation
@@ -59,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -157,13 +176,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # name, dtype, B, S, T, H, K, D, causal, window, softcap.  Timed: internlm2's
 # prefill (the slice shape of the kernels' JSON line), mixtral's eval and
-# prefill (window 4096 >= T, so the mask is the causal one) and the slice
-# shape in f32, which runs on the FMA kernel.
+# prefill (window 4096 >= T, so the mask is the causal one), the slice shape in
+# f32, which runs on the FMA kernel, and the two head dims whose rows are not a
+# whole number of 128-byte slabs: phi3-mini's prefill (32 heads of 96) and
+# zamba2's shared block (32 heads of 112), in bf16 and f32.
 SLICE_CASE = ("slice", "bfloat16", 8, 512, 512, 16, 8, 128, True, None, None)
 FLASH_TIMED = [
     SLICE_CASE,
     ("mixtral", "bfloat16", 8, 512, 512, 32, 8, 128, True, 4096, None),
     ("slice_f32", "float32", 8, 512, 512, 16, 8, 128, True, None, None),
+    ("phi3_d96", "bfloat16", 8, 512, 512, 32, 32, 96, True, None, None),
+    ("phi3_d96_f32", "float32", 8, 512, 512, 32, 32, 96, True, None, None),
+    ("zamba2_d112", "bfloat16", 8, 512, 512, 32, 32, 112, True, None, None),
+    ("zamba2_d112_f32", "float32", 8, 512, 512, 32, 32, 112, True, None, None),
 ]
 EDGE_CASES = [
     ("ragged", "bfloat16", 2, 100, 100, 16, 8, 128, True, None, None),
@@ -187,6 +212,19 @@ EDGE_CASES = [
     ("s37_noncausal", "bfloat16", 2, 37, 100, 8, 2, 32, False, None, None),
     ("window100", "bfloat16", 2, 300, 300, 8, 2, 128, True, 100, None),
     ("g4_softcap", "bfloat16", 2, 256, 256, 16, 4, 128, True, None, 30.0),
+    # head dims that are not 16, 32, 64 or 128: the bf16 tile's 64-byte (D 96)
+    # and 32-byte (D 48, 80, 112) slabs and the per-slab PV products, in both
+    # dtypes, with a window, a softcap, ragged lengths and S < T
+    *[(f"d{d}{sfx}", dtype, 2, 128, 128, 4, 2, d, True, None, None)
+      for d in (48, 80) for dtype, sfx in (("bfloat16", ""), ("float32", "_f32"))],
+    *[(f"d{d}_{kind}{sfx}", dtype, 2, 300 if kind == "window" else 256,
+       300 if kind == "window" else 256, 8, 2, d, True, 100 if kind == "window" else None,
+       30.0 if kind == "softcap" else None)
+      for d in (96, 112) for kind in ("window", "softcap")
+      for dtype, sfx in (("bfloat16", ""), ("float32", "_f32"))],
+    ("d80_s37", "bfloat16", 2, 37, 37, 8, 2, 80, True, 16, None),
+    ("d112_s_lt_t", "bfloat16", 2, 64, 192, 8, 4, 112, True, None, None),
+    ("d96_noncausal", "bfloat16", 2, 100, 200, 8, 8, 96, False, None, None),
 ]
 
 
@@ -567,10 +605,17 @@ def _timed(fn, log: list):
     return wrapper
 
 
-def _kernel_time(trace: Path, top: int = 6) -> str:
+# kernels whose device time a training step's profile sums, by a part of
+# their names: cuBLAS's GEMMs, and the copies that cast weights, activations
+# and gradients between f32 and bf16
+KERNEL_GROUPS = {"cuBLAS GEMMs": ("nvjet", "gemm", "cutlass", "xmma"),
+                 "casts and copies": ("copy_kernel",)}
+
+
+def _kernel_time(trace: Path, top: int = 6, groups: dict | None = None) -> str:
     """Device time by kernel from a chrome trace: the busy share of the traced
-    window (union of kernel intervals over first start to last end) and the
-    largest kernels by total time."""
+    window (union of kernel intervals over first start to last end), the
+    largest kernels by total time, and the total of each of ``groups``."""
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") == "kernel" and "dur" in e]
     if not events:
@@ -592,6 +637,9 @@ def _kernel_time(trace: Path, top: int = 6) -> str:
              f"({100 * busy / window:.1f} %), {len(events)} kernels"]
     for name, dur in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         lines.append(f"    {100 * dur / total:5.1f} %  {dur / 1e3:9.3f} ms  {name[:90]}")
+    for group, parts in (groups or {}).items():
+        dur = sum(d for name, d in by_name.items() if any(x in name for x in parts))
+        lines.append(f"    {group}: {dur / 1e3:.3f} ms ({100 * dur / total:.1f} % of kernel time)")
     # the port's own kernels, wherever they rank
     for name, dur in by_name.items():
         if any(k in name for k in ("flash_attention", "mamba_scan", "gmm_")):
@@ -601,7 +649,7 @@ def _kernel_time(trace: Path, top: int = 6) -> str:
     return "\n".join(lines)
 
 
-def _profile(name: str, fn) -> None:
+def _profile(name: str, fn, top: int = 6, groups: dict | None = None) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -612,7 +660,7 @@ def _profile(name: str, fn) -> None:
     trace = ROOT / "build" / f"trace_{name.split()[0]}.json"
     trace.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    print(f"  profile {name}: {_kernel_time(trace)}")
+    print(f"  profile {name}: {_kernel_time(trace, top, groups)}")
 
 
 def profile_serving(model, params, tokens, max_len: int, steps: int = 8) -> None:
@@ -735,10 +783,22 @@ def serve(n_requests: int = 16, max_new: int = 32) -> int:
           f"flash_attention launched {launches} times, want "
           f"{cfg.n_layers} x {batches} prefill batches")
 
-    # prefill logits of the first batch through the kernel and through
-    # attend_xla, at full depth in f32 and bf16 and at the first layer in bf16
-    tokens_t = first_batch(prompts)
-    width = tokens_t.shape[1]
+    tokens = first_batch(prompts)
+    prefill_flash_vs_xla(cfg, params, tokens)
+    profile_serving(Model(cfg), params, tokens, max_len=512 + max_new)
+    return launches
+
+
+def prefill_flash_vs_xla(cfg, params, tokens) -> None:
+    """Prefill logits of ``tokens`` through the kernel ("flash") and through
+    attend_xla, at full depth in f32 and bf16 and at the first layer in bf16:
+    f32 at full depth within PREFILL_F32_TOL, bf16 at the first layer within
+    PREFILL_SHALLOW_BF16_TOL (relative L2)."""
+    import torch
+
+    from repro_torch.models.model import Model
+
+    width = tokens.shape[1]
     logits = {}
     runs = [(cfg.n_layers, "float32"), (cfg.n_layers, "bfloat16"), (SHALLOW_LAYERS, "bfloat16")]
     with torch.inference_mode():
@@ -746,7 +806,7 @@ def serve(n_requests: int = 16, max_new: int = 32) -> int:
             for impl in ("xla", "flash"):
                 run_cfg = cfg.replace(n_layers=n_layers, compute_dtype=dtype,
                                       attention_impl=impl)
-                out, _ = Model(run_cfg).prefill(params, {"tokens": tokens_t}, width)
+                out, _ = Model(run_cfg).prefill(params, {"tokens": tokens}, width)
                 logits[impl, n_layers, dtype] = out.float()
     for key, val in logits.items():
         check(bool(torch.isfinite(val).all()), f"prefill logits {key} not finite")
@@ -769,8 +829,6 @@ def serve(n_requests: int = 16, max_new: int = 32) -> int:
     check(rel_f32 <= PREFILL_F32_TOL, f"flash f32 prefill differs from xla f32: {rel_f32}")
     check(rel_shallow <= PREFILL_SHALLOW_BF16_TOL,
           f"flash bf16 prefill at {SHALLOW_LAYERS} layers differs from xla bf16: {rel_shallow}")
-    profile_serving(Model(cfg), params, tokens_t, max_len=512 + max_new)
-    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1047,6 +1105,317 @@ def smoke_model_card_vs_cpu(arch: str, kernel: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: phi3-mini-3.8b prefill, head_dim 96 through the attention kernel
+# ---------------------------------------------------------------------------
+
+
+def prefill_phi3(B: int = 8, S: int = 512) -> int:
+    """phi3-mini-3.8b at full width and depth (32 layers, 32 heads of 96, f32
+    params drawn from seed 0, bf16 compute, "flash"): one prefill batch of
+    B x S launches flash_attention once a layer and no other kernel, and its
+    logits are held against attend_xla at internlm2's limits.  Returns the
+    launches of that batch."""
+    import numpy as np
+    import torch
+
+    model, params = big_model("phi3-mini-3.8b")
+    cfg = model.cfg
+    check(cfg.resolved_head_dim == 96, f"phi3-mini head_dim {cfg.resolved_head_dim}, want 96")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": tokens}, S)  # set-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, {"tokens": tokens}, S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        check(bool(torch.isfinite(logits).all()), "phi3 prefill logits not finite")
+    want = {"flash_attention": cfg.n_layers, "mamba_scan": 0, "gmm": 0}
+    print(f"  prefill 1 batch of {B} x {S}: {1e3 * wall:.3f} ms, logits "
+          f"{tuple(logits.shape)}; kernel launches {launches}")
+    check(launches == want, f"phi3 prefill launched {launches}, want {want}")
+    prefill_flash_vs_xla(cfg, params, tokens)
+    with torch.inference_mode():
+        _profile("phi3 prefill (1 batch)", lambda: model.prefill(params, {"tokens": tokens}, S))
+    del model, params, logits
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: training internlm2-1.8b
+# ---------------------------------------------------------------------------
+
+# 8 x 512 SyntheticTokens batches under the training launcher's schedule
+# (lr 1e-3, 2 warmup steps, then a cosine over the run's steps)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 5
+TRAIN_SCHEDULE = dict(learning_rate=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# microbatches=1 against microbatches=2 on one batch in f32: the same loss and
+# gradients summed in another order; params after the step at atol 2 lr(step 0)
+# + rtol 1e-4, since Adam turns the sign of a near-zero gradient into a whole
+# +-lr step (tests/test_torch_train.py)
+MICROBATCH_TOL = 1e-4
+# the flow sub-phase runs at full width and 2 layers: at full depth a
+# checkpoint of params, m and v is 12 B x 1.889 B = 22.7 GB to write and read
+# back, at 2 layers 6.1 GB
+FLOW_LAYERS = 2
+
+
+def _train_batches(cfg, n: int, B: int, S: int) -> list:
+    import torch
+
+    from repro_torch.train.data import SyntheticTokens
+
+    data = SyntheticTokens(cfg.vocab_size, B, S, seed=0)
+    return [{k: torch.as_tensor(v, device="cuda") for k, v in data.batch_at(i).items()}
+            for i in range(n)]
+
+
+def train() -> dict:
+    """make_train_step on full-width, full-depth internlm2-1.8b (1.889 B
+    params; f32 params and AdamW state, bf16 compute, attention_impl="xla",
+    remat "full", the config's own), weights drawn from seed 0 (std
+    1/sqrt(d_in)), TRAIN_STEPS steps on TRAIN_B x TRAIN_S batches.  Checks a
+    finite loss that falls from the first step to the last and that no kernel
+    of the three launches (training runs the plain routes, as in the
+    reference).  Prints each step, the median step time, tokens/s, model
+    FLOP/s (8 N tokens a step with remat), peak memory, the optimizer's share,
+    one step each under remat "none" and "dots", and a one-step profile.
+    Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.model import Model
+    from repro_torch.testing import redraw_params_
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt
+
+    cfg = configs.get("internlm2-1.8b")
+    check(cfg.attention_impl == "xla" and cfg.remat_policy == "full"
+          and cfg.param_dtype == "float32" and cfg.compute_dtype == "bfloat16",
+          "expected xla attention, full remat, f32 params, bf16 compute")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+    redraw_params_(params, seed=0)
+    state = loop.TrainState(params, opt.init_adamw(params))
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    print(f"  internlm2-1.8b: {cfg.n_layers} layers, d {cfg.d_model}, {n_params / 1e9:.3f} B "
+          f"params, state (params, m, v) {torch.cuda.memory_allocated() / 1e9:.1f} GB, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    tcfg = TrainConfig(**TRAIN_SCHEDULE)
+    step_fn = loop.make_train_step(model, tcfg)
+    batches = _train_batches(cfg, TRAIN_STEPS, TRAIN_B, TRAIN_S)
+
+    update_s, times, losses, norms = [], [], [], []
+    real_update = opt.adamw_update
+    opt.adamw_update = _timed(real_update, update_s)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            times.append(time.perf_counter() - t0)
+            print(f"  step {i + 1}: loss {losses[-1]:.6f}, grad norm {norms[-1]:.4f}, lr "
+                  f"{metrics['lr'].item():.3e}, {1e3 * times[-1]:.3f} ms (AdamW "
+                  f"{1e3 * update_s[-1]:.3f} ms)")
+    finally:
+        opt.adamw_update = real_update
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {"flash_attention": 0, "mamba_scan": 0, "gmm": 0},
+          f"training launched {launches}; its path runs no kernel of the three")
+    check(all(np.isfinite(losses + norms)), f"training not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    tokens = TRAIN_B * TRAIN_S
+    step_s = float(np.median(times))
+    flops = 8 * n_params * tokens  # forward, backward and the remat forward
+    out = {"arch": "internlm2-1.8b", "layers": cfg.n_layers, "params": n_params,
+           "batch": [TRAIN_B, TRAIN_S], "losses": losses, "grad_norms": norms,
+           "step_ms": [1e3 * t for t in times], "median_step_ms": 1e3 * step_s,
+           "tokens_per_s": tokens / step_s, "model_flops_per_s": flops / step_s,
+           "model_flops_share": flops / step_s / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak / 1e9,
+           "adamw_ms": 1e3 * float(np.median(update_s)), "launches": launches}
+    print(f"  median step {out['median_step_ms']:.3f} ms: {out['tokens_per_s']:.1f} tokens/s, "
+          f"model FLOP/s (8 N tokens) {out['model_flops_per_s'] / 1e12:.1f} T = "
+          f"{100 * out['model_flops_share']:.1f} % of the bf16 peak; AdamW (host clock, median) "
+          f"{out['adamw_ms']:.3f} ms; peak memory {out['peak_memory_gb']:.2f} GB; kernel "
+          f"launches {launches}")
+
+    # what remat costs: one step each without it and saving the projections
+    for policy in ("none", "dots"):
+        other = loop.make_train_step(Model(cfg.replace(remat_policy=policy)), tcfg)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = other(state, batches[0])
+        metrics["loss"].item()
+        ms = 1e3 * (time.perf_counter() - t0)
+        out[f"step_ms_remat_{policy}"] = ms
+        out[f"peak_memory_gb_remat_{policy}"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  one step with remat {policy!r}: {ms:.3f} ms, peak memory "
+              f"{out[f'peak_memory_gb_remat_{policy}']:.2f} GB")
+    _profile("train step (1 step, remat full)", lambda: step_fn(state, batches[0]), top=10,
+             groups=KERNEL_GROUPS)
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_microbatches() -> dict:
+    """One training step at full width and 2 layers in f32 from the same
+    state and batch with microbatches=1 and microbatches=2: loss and grad
+    norm within MICROBATCH_TOL, params within atol 2 lr(step 0) + rtol 1e-4."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.testing import redraw_params_
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt
+
+    cfg = configs.get("internlm2-1.8b").replace(n_layers=FLOW_LAYERS, compute_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+    redraw_params_(params, seed=0)
+    batch = _train_batches(cfg, 1, TRAIN_B, TRAIN_S)[0]
+    tcfg = TrainConfig(**TRAIN_SCHEDULE)
+    results = {}
+    for mb in (1, 2):
+        p = L.map_tree(torch.clone, params)
+        state, metrics = loop.make_train_step(model, dataclasses.replace(tcfg, microbatches=mb))(
+            loop.TrainState(p, opt.init_adamw(p)), batch)
+        results[mb] = (state.params, {k: v.item() for k, v in metrics.items()})
+        del state
+    (p1, m1), (p2, m2) = results[1], results[2]
+    gaps = {k: abs(m2[k] - m1[k]) / abs(m1[k]) for k in ("loss", "grad_norm")}
+    atol = 2 * m1["lr"]
+    margin = max(((a - b).abs() / (atol + MICROBATCH_TOL * b.abs())).max().item()
+                 for (_, a), (_, b) in zip(L.flatten_specs(p2), L.flatten_specs(p1)))
+    print(f"  {FLOW_LAYERS} layers, f32, one step of {TRAIN_B} x {TRAIN_S}: microbatches 1 vs 2, "
+          f"loss {m1['loss']:.6f} vs {m2['loss']:.6f} (rel {gaps['loss']:.2e}), grad norm "
+          f"{m1['grad_norm']:.5f} vs {m2['grad_norm']:.5f} (rel {gaps['grad_norm']:.2e}), tol "
+          f"{MICROBATCH_TOL}; params margin {margin:.3f} (atol 2 lr = {atol:.1e}, rtol "
+          f"{MICROBATCH_TOL}, at most 1)")
+    check(max(gaps.values()) <= MICROBATCH_TOL, f"microbatches differ: {gaps}")
+    check(margin <= 1.0, f"params after microbatched step differ: margin {margin}")
+    del results, params, p1, p2
+    torch.cuda.empty_cache()
+    return {"loss_rel": gaps["loss"], "grad_norm_rel": gaps["grad_norm"], "params_margin": margin}
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def train_flow() -> dict:
+    """The paper's training flow on the card: FlowsService -> ap://compute ->
+    TrainingFabric (internlm2-1.8b at full width and FLOW_LAYERS layers,
+    params from the fabric's own Model.init on seed 0) through the port's
+    training_flow_definition, one segment of 4 steps with a NodeFailure
+    injected at its second step, restored from the seed checkpoint.  Prints the
+    run's status, the restored step, each checkpoint's bytes and save and
+    restore seconds, and the eval loss; no kernel of the three launches."""
+    import math
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import run_training_flow
+    from repro_torch.train.fabric import TrainingFabric
+
+    cfg = configs.get("internlm2-1.8b").replace(n_layers=FLOW_LAYERS)
+    workdir = ROOT / "build" / "train_flow"
+    shutil.rmtree(workdir, ignore_errors=True)
+    fabric = TrainingFabric(cfg, TrainConfig(**TRAIN_SCHEDULE), batch=TRAIN_B, seq_len=TRAIN_S,
+                            ckpt_dir=str(workdir / "ckpt"), device="cuda")
+    save_s, restore_s = [], []
+    fabric.save_checkpoint = _timed(fabric.save_checkpoint, save_s)
+    fabric.restore_latest = _timed(fabric.restore_latest, restore_s)
+    reset_launch_counts()
+    run = run_training_flow(fabric, str(workdir), segments=1, steps_per_segment=4,
+                            simulate_failure=True, label="chip-smoke")
+    launches = launch_counts()
+    check(run.status == "SUCCEEDED", f"training flow {run.status}: {run.error}")
+    check("NodeFailure" in str(run.context.get("failure")), "no NodeFailure was caught")
+    restored = run.context["restore"]["details"]["results"][0]["restored_step"]
+    final = run.context["train"]["details"]["results"][0]
+    eval_loss = run.context["eval"]["details"]["results"][0]["eval_loss"]
+    check(restored == 0 and final["step"] == 4, f"restored {restored}, final {final}")
+    check(math.isfinite(eval_loss) and math.isfinite(final["loss"]), f"eval loss {eval_loss}")
+    check(launches == {"flash_attention": 0, "mamba_scan": 0, "gmm": 0},
+          f"the training flow launched {launches}")
+    ckpt_bytes = _dir_bytes(workdir / "ckpt" / "step_00000004")
+    out = {"layers": FLOW_LAYERS, "params": cfg.param_count(), "status": run.status,
+           "restored_step": restored, "final_step": final["step"], "eval_loss": eval_loss,
+           "checkpoint_bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s}
+    print(f"  flow run {run.status}: {cfg.n_layers} layers ({out['params'] / 1e6:.1f} M params), "
+          f"NodeFailure at step 1 caught, restored step {restored}, final step {final['step']} "
+          f"(loss {final['loss']:.4f}), eval loss {eval_loss:.4f}; kernel launches {launches}")
+    print(f"  checkpoint {ckpt_bytes / 1e9:.3f} GB: save s {[round(t, 3) for t in save_s]} "
+          f"({ckpt_bytes / 1e9 / max(save_s):.2f} GB/s at the slower), restore s "
+          f"{[round(t, 3) for t in restore_s]} ({ckpt_bytes / 1e9 / restore_s[0]:.2f} GB/s)")
+    del fabric
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def gradient_guard() -> None:
+    """A backward through any kernel route raises on the card, as on the CPU:
+    Model.loss(...).backward() under attention_impl="flash" with params that
+    require grad, and mamba_scan and gmm on CUDA inputs that require grad.
+    Nothing is launched."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+
+    cfg = configs.get("internlm2-1.8b", smoke=True).replace(attention_impl="flash")
+    params = Model(cfg).init(torch.Generator("cuda").manual_seed(0), device="cuda")
+    params = L.map_tree(lambda p: p.requires_grad_(), params)
+    tokens = torch.ones((2, 16), dtype=torch.long, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def rand(*shape, grad=False):
+        return torch.randn(*shape, generator=gen, device="cuda").requires_grad_(grad)
+
+    calls = {
+        "Model.loss(flash).backward()": lambda: Model(cfg).loss(
+            params, {"tokens": tokens, "labels": tokens}).backward(),
+        "mamba_scan": lambda: ops.mamba_scan(rand(1, 64, 2, 16, grad=True), rand(1, 64, 2).abs(),
+                                             -rand(2).abs(), rand(1, 64, 16), rand(1, 64, 16),
+                                             chunk=32),
+        "gmm": lambda: ops.gmm(rand(2, 16, 32), rand(2, 32, 16, grad=True)),
+    }
+    reset_launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"  {name} with inputs that require grad: NotImplementedError ({e})")
+        else:
+            raise RuntimeError(f"{name} ran a kernel route under autograd")
+    check(launch_counts() == {"flash_attention": 0, "mamba_scan": 0, "gmm": 0},
+          "a kernel launched under autograd")
+
+
+# ---------------------------------------------------------------------------
 # python3 chip_smoke.py --flash-ablation | --scan-ablation: a kernel with
 # parts of its work switched off, by text substitution in a copy of its source
 # ---------------------------------------------------------------------------
@@ -1260,11 +1629,31 @@ def main() -> int:
     for argv in ([], ["--arch", "zamba2-7b"], ["--arch", "mixtral-8x7b"]):
         check(serve_main(argv) == 0, f"launcher failed for {argv}")
 
+    print("== phi3-mini-3.8b: prefill (head_dim 96)")
+    phi3_launches = prefill_phi3()
+
+    print("== train internlm2-1.8b")
+    training = train()
+    training["microbatches"] = train_microbatches()
+    print(f"== train internlm2-1.8b: the training flow ({FLOW_LAYERS} layers)")
+    training["flow"] = train_flow()
+    print("== train internlm2-1.8b: the training launcher (SMOKE)")
+    from repro_torch.launch.train import main as train_main
+
+    workdir = ROOT / "build" / "train_launcher"
+    shutil.rmtree(workdir, ignore_errors=True)  # no checkpoint of an earlier run
+    check(train_main(["--simulate-failure", "--workdir", str(workdir)]) == 0,
+          "the training launcher failed")
+    shutil.rmtree(workdir, ignore_errors=True)
+    print("== gradient guard")
+    gradient_guard()
+
     kernels = [{
         "name": "flash_attention", "route": "cuda", "kernel_route": "tma_wgmma",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
-        "launches": fa_launches, "max_abs_err": attn["max_abs_err"],
+        "launches": fa_launches, "phi3_prefill_launches": phi3_launches,
+        "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
         "library_ms": attn["library_ms"],
@@ -1289,6 +1678,7 @@ def main() -> int:
         # the same fields at the other timed shapes
         **{name: rec for name, rec in gmm_records.items() if name != GMM_SLICE[0]},
     }]
+    print(json.dumps({"train": training}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -34,21 +34,11 @@ def _check(tree, cfg: ModelConfig, shape_of) -> list:
     return leaves
 
 
-def _unflatten(pairs) -> dict:
-    tree: dict = {}
-    for path, leaf in pairs:
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = leaf
-    return tree
-
-
 def params_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``."""
     dev = resolve_device(device)
     leaves = _check(tree, cfg, np.shape)
-    return _unflatten(
+    return L.unflatten(
         (path, torch.from_numpy(np.array(leaf, copy=True)).to(dev))
         for path, leaf in leaves
     )
@@ -57,4 +47,4 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
 def params_to_jax(params, cfg: ModelConfig) -> dict:
     """Nested dict of tensors -> nested dict of numpy arrays (on the host)."""
     leaves = _check(params, cfg, lambda t: t.shape)
-    return _unflatten((path, t.detach().cpu().numpy()) for path, t in leaves)
+    return L.unflatten((path, t.detach().cpu().numpy()) for path, t in leaves)

@@ -78,12 +78,16 @@ constexpr int TC_BM = 64;        // q rows a block: one m64 wgmma
 constexpr int TC_BN = 64;        // kv rows a tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// A staged tile: 64 rows of D bf16, cut into slabs of RB-byte rows (RB =
-// min(2 D, 128)) whose 16-byte chunks are swizzled as TMA writes them with
-// the map's swizzle mode and as wgmma reads them.
+// A staged tile: 64 rows of D bf16, cut into slabs of RB-byte rows, RB the
+// largest of 128, 64 and 32 that divides a row's 2 D bytes (D 16: 32; D 32,
+// 96: 64; D 48, 80, 112: 32; D 64, 128: 128), so that every slab is one whole
+// swizzle atom wide.  The slabs' 16-byte chunks are swizzled as TMA writes
+// them with the map's swizzle mode and as wgmma reads them.
 template <int D>
 struct TcTile {
-  static constexpr int RB = 2 * D < 128 ? 2 * D : 128;
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dims 16..128, multiples of 16");
+  static constexpr int RB = 2 * D % 128 == 0 ? 128 : 2 * D % 64 == 0 ? 64 : 32;
+  static constexpr int SLABS = 2 * D / RB;
   static constexpr int SWZ = RB == 128 ? 3 : RB == 64 ? 2 : 1;  // row bits XORed into the chunk
   static constexpr int SWIZZLE = 4 - SWZ;  // wgmma_desc's mode: 1 for 128 B rows, 3 for 32 B
   static constexpr int SLAB = TC_BN * RB;                           // bytes of a slab
@@ -111,7 +115,7 @@ __device__ __forceinline__ void tma_tile(char* dst, const CUtensorMap* map, int 
                                          int b, uint64_t* bar) {
   using TT = TcTile<D>;
 #pragma unroll
-  for (int slab = 0; slab < 2 * D / TT::RB; ++slab)
+  for (int slab = 0; slab < TT::SLABS; ++slab)
     ptx::tma_load_4d(dst + slab * TT::SLAB, map, slab * TT::RB / 2, head, row, b, bar);
 }
 
@@ -130,24 +134,36 @@ __device__ __forceinline__ void qk_wgmma(float (&s)[32], const uint32_t (&qf)[D 
 }
 
 // O (64 x D) += P (64 x 16) V (16 x D), V read n-major (transposed) from the
-// staged tile at its row `k0`.  At D 64 it runs as two n32 halves: a single
-// transposed m64n64k16 beside the k-major m64n64k16 of S gave wrong sums on
-// the card (two kv tiles or more), which the n32 halves do not.
+// staged tile at its row `k0`.  D 128 runs as one m64n128k16 across its two
+// 128-byte slabs.  At D 64 a single transposed m64n64k16 beside the k-major
+// m64n64k16 of S gave wrong sums on the card (two kv tiles or more), so its
+// one slab runs as two n32 halves.  Every other D runs one product a slab,
+// m64n{RB/2}k16 (n32 at RB 64, n16 at RB 32), its descriptor at the slab's
+// base, so that no transposed product spans more than one swizzle atom.
 template <int D>
 __device__ __forceinline__ void pv_wgmma(float (&acc)[D / 2], const uint32_t (&pf)[4],
                                          const char* v_tile, int k0) {
   using TT = TcTile<D>;
-  const uint64_t desc =
-      ptx::wgmma_desc(v_tile + k0 * TT::RB, TT::SLAB, 8 * TT::RB, TT::SWIZZLE);
-  if constexpr (D == 64) {
+  const char* v_rows = v_tile + k0 * TT::RB;
+  if constexpr (D == 128) {
+    ptx::wgmma_m64n128k16<1>(acc, pf, ptx::wgmma_desc(v_rows, TT::SLAB, 8 * TT::RB, TT::SWIZZLE),
+                             1);
+  } else if constexpr (D == 64) {
+    const uint64_t desc = ptx::wgmma_desc(v_rows, TT::SLAB, 8 * TT::RB, TT::SWIZZLE);
     ptx::wgmma_m64n32k16<1>(*reinterpret_cast<float(*)[16]>(&acc[0]), pf, desc, 1);
     ptx::wgmma_m64n32k16<1>(*reinterpret_cast<float(*)[16]>(&acc[16]), pf, desc + (64 >> 4), 1);
-  } else if constexpr (D == 16) {
-    ptx::wgmma_m64n16k16<1>(acc, pf, desc, 1);
-  } else if constexpr (D == 32) {
-    ptx::wgmma_m64n32k16<1>(acc, pf, desc, 1);
   } else {
-    ptx::wgmma_m64n128k16<1>(acc, pf, desc, 1);
+    constexpr int PART = TT::RB / 4;  // accumulator floats a slab: RB / 2 columns
+#pragma unroll
+    for (int slab = 0; slab < TT::SLABS; ++slab) {
+      const uint64_t desc =
+          ptx::wgmma_desc(v_rows + slab * TT::SLAB, TT::SLAB, 8 * TT::RB, TT::SWIZZLE);
+      float(&part)[PART] = *reinterpret_cast<float(*)[PART]>(&acc[slab * PART]);
+      if constexpr (TT::RB == 64)
+        ptx::wgmma_m64n32k16<1>(part, pf, desc, 1);
+      else
+        ptx::wgmma_m64n16k16<1>(part, pf, desc, 1);
+    }
   }
 }
 
@@ -616,7 +632,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   switch (D) {
     case 16: return (int)launch<16>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
     case 32: return (int)launch<32>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    case 48: return (int)launch<48>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
     case 64: return (int)launch<64>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    case 80: return (int)launch<80>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    case 96: return (int)launch<96>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    case 112: return (int)launch<112>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
     case 128: return (int)launch<128>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+# every multiple of 16 from 16 to 128: csrc/flash_attention.cu instantiates each
+HEAD_DIMS = tuple(range(16, 129, 16))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -33,8 +34,6 @@ def _bind() -> ctypes.CDLL:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int | None, logit_softcap: float | None) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -49,7 +48,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"head_dim {D} is not a multiple of 16 from 16 to 128; "
+                         f"the kernel takes {HEAD_DIMS}")
     if H % k.shape[2]:
         raise ValueError(f"{H} q heads do not group over {k.shape[2]} kv heads")
     if 0 in (B, S, k.shape[1]):
@@ -60,6 +60,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     if logit_softcap is not None and logit_softcap < 0:
         raise ValueError(f"logit_softcap must be positive, got {logit_softcap}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -40,6 +40,32 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def unflatten(pairs) -> dict:
+    """The nested dict of ``(path, leaf)`` pairs: the inverse of flatten_specs."""
+    tree: dict = {}
+    for path, leaf in pairs:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def value_and_grad(loss_fn, params, *args):
+    """``(loss, grads)`` of ``loss_fn(params, *args)``, as ``jax.value_and_grad``:
+    ``grads`` has params' structure, the gradient of each floating-point leaf
+    (zeros for a leaf the loss does not use), None for any other leaf.  The
+    leaves are differentiated through detached aliases, so params themselves
+    need not, and do not come to, require grad."""
+    pairs = [(path, t.detach().requires_grad_(t.is_floating_point()))
+             for path, t in flatten_specs(params)]
+    loss = loss_fn(unflatten(pairs), *args)
+    wrt = [t for _, t in pairs if t.requires_grad]
+    grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True))
+    return loss.detach(), unflatten((path, next(grads) if t.requires_grad else None)
+                                    for path, t in pairs)
+
+
 def _make(generator: torch.Generator, spec: ParamSpec, dtype, device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)

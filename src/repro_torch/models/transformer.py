@@ -10,10 +10,12 @@ ROADMAP.md).
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -33,8 +35,46 @@ def layer_params(stacked, i: int):
     return L.map_tree(lambda a: a[i], stacked)
 
 
+def unstack(stacked, n: int) -> list:
+    """The ``n`` per-layer trees of a tree of stacked ``[n, ...]`` tensors: views
+    from one ``unbind`` a leaf.  Under autograd a leaf's gradient is then put
+    together by one ``stack``, where ``n`` views ``a[i]`` would each scatter
+    into a zeroed copy of the whole leaf and the ``n`` copies be summed (at
+    internlm2-1.8b's 24 layers that took a third of a training step's device
+    time)."""
+    parts = L.map_tree(lambda a: a.unbind(0), stacked)
+    return [L.map_tree(lambda leaf: leaf[i], parts) for i in range(n)]
+
+
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
+
+
+# what "dots" keeps: the outputs of products without batch dimensions (the
+# projections' ``x @ w``), as jax's checkpoint_dots_with_no_batch_dims does;
+# the attention einsums run as bmm and are recomputed
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat_policy`` (``repro/models/transformer.py:46-52``):
+    ``"none"`` a plain call, ``"dots"`` a checkpoint that saves only the
+    outputs of ``_DOTS``, anything else a full checkpoint.  Without autograd
+    (``torch.inference_mode``, ``torch.no_grad``) there is nothing to save and
+    ``fn`` is called plainly."""
+    if cfg.remat_policy == "none":
+        return fn
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if cfg.remat_policy == "dots":
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _DOTS))
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -142,9 +182,15 @@ def forward_lm(params, cfg: ModelConfig, tokens: torch.Tensor,
     aux loss averaged over the layers, 0 for the dense stack."""
     x = embed_tokens(params, cfg, tokens, pixel_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def body(x, block_params):
+        x, _, a = apply_block(block_params, cfg, x, positions)
+        return x, a
+
+    body = _remat(body, cfg)
     aux = torch.zeros((), device=tokens.device)
-    for i in range(cfg.n_layers):
-        x, _, a = apply_block(layer_params(params["blocks"], i), cfg, x, positions)
+    for block_params in unstack(params["blocks"], cfg.n_layers):
+        x, a = body(x, block_params)
         aux = aux + a
     return lm_logits(params, cfg, x), aux / max(cfg.n_layers, 1)
 
@@ -158,11 +204,15 @@ def prefill_lm(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
     positions = torch.arange(S, device=tokens.device)
     caches = attn.init_kv_cache(cfg, cfg.n_layers, B, max_len, compute_dtype(cfg),
                                 tokens.device)
+
+    def body(x, block_params, cache):
+        x, _, _ = apply_block(block_params, cfg, x, positions, cache=cache,
+                              cache_position=0)
+        return x
+
+    body = _remat(body, cfg)
     for i in range(cfg.n_layers):
-        x, _, _ = apply_block(
-            layer_params(params["blocks"], i), cfg, x, positions,
-            cache=layer_params(caches, i), cache_position=0,
-        )
+        x = body(x, layer_params(params["blocks"], i), layer_params(caches, i))
     return lm_logits(params, cfg, x[:, -1:, :]), caches
 
 
@@ -245,8 +295,8 @@ def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
     """Shared attention block; LoRA delta on the fused QKV and MLP-up.
 
     Attention is always ``attend_xla``, as in the reference
-    (``transformer.py:332,335``): zamba2's head_dim 112 is not one the flash
-    kernel takes.  With a cache, K/V are written into it in place."""
+    (``transformer.py:332,335``), under either ``attention_impl``.  With a
+    cache, K/V are written into it in place."""
     hd = cfg.resolved_head_dim
     nq = cfg.n_heads * hd
     nk = cfg.n_kv_heads * hd
@@ -285,23 +335,25 @@ def _mamba_layers(params, cfg: ModelConfig):
     """Yields ``(g, [(l, layer params), ...])``: the Mamba2 layers before
     shared application ``g``, in order, then ``(None, ...)`` for the tail."""
     n_groups, period, tail = zamba_structure(cfg)
-    for g in range(n_groups):
-        group = layer_params(params["groups"], g)
-        yield g, [(l, layer_params(group, l)) for l in range(period)]
+    for g, group in enumerate(unstack(params["groups"], n_groups)):
+        yield g, list(enumerate(unstack(group, period)))
     if tail:
-        yield None, [(l, layer_params(params["tail"], l)) for l in range(tail)]
+        yield None, list(enumerate(unstack(params["tail"], tail)))
 
 
 def forward_zamba(params, cfg: ModelConfig, tokens: torch.Tensor):
     """Training/eval forward.  Returns (logits, aux_loss = 0)."""
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    # each Mamba2 layer is rematerialised, the shared block is not
+    # (repro/models/transformer.py:359,367)
+    inner = _remat(lambda p, x: _apply_mamba_layer(p, cfg, x)[0], cfg)
+    lora = unstack(params["lora"], zamba_structure(cfg)[0])
     for g, layers in _mamba_layers(params, cfg):
         for _, p in layers:
-            x, _ = _apply_mamba_layer(p, cfg, x)
+            x = inner(p, x)
         if g is not None:
-            x = _apply_shared_with_lora(params["shared"], layer_params(params["lora"], g),
-                                        cfg, x, positions)
+            x = _apply_shared_with_lora(params["shared"], lora[g], cfg, x, positions)
     return lm_logits(params, cfg, x), torch.zeros((), device=tokens.device)
 
 

@@ -1,0 +1,133 @@
+"""TrainingFabric: the compute-plane object the automation flows drive.
+Counterpart of ``repro/train/fabric.py:39-210``.
+
+The paper's pattern is funcX-mediated: flows invoke *registered functions*
+on *compute endpoints*.  ``TrainingFabric`` owns a model, its optimizer state
+and a data source on one device and exposes exactly such functions
+(``train_steps``, ``evaluate``, ``save_checkpoint``, ``restore_latest``,
+``export_metrics``), which launchers register with the Compute action
+provider of the port's control plane (:mod:`repro_torch.core`).  Fault
+tolerance: ``inject_failure_at`` makes a training action raise
+:class:`repro_torch.core.errors.NodeFailure` at a chosen step; flows catch it
+and route to a restore state.  The reference's ``mesh`` argument and
+``reshard`` (elastic rescaling over a device mesh) wait for sharding.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.errors import NodeFailure
+from repro_torch.models.model import Model
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.data import SyntheticTokens
+from repro_torch.train.loop import TrainState, init_state, make_eval_step, make_train_step
+
+
+class TrainingFabric:
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        train_cfg: TrainConfig,
+        batch: int,
+        seq_len: int,
+        ckpt_dir: str,
+        data=None,
+        seed: int = 0,
+        device=None,
+    ):
+        """``device``: where the state lives and the steps run (default CUDA).
+        The params are drawn from ``train_cfg.seed``, the synthetic data (when
+        no ``data`` is given) from ``seed``."""
+        self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.batch = batch
+        self.seq_len = seq_len
+        self.ckpt_dir = ckpt_dir
+        self.device = resolve_device(device)
+        self.data = data or SyntheticTokens(model_cfg.vocab_size, batch, seq_len, seed=seed)
+        self.model = Model(model_cfg)
+        self.state: TrainState | None = None
+        self.history: list[dict] = []
+        self.inject_failure_at: int | None = None
+        self.checkpointer = ckpt.AsyncCheckpointer(ckpt_dir)
+        self._build()
+
+    # ------------------------------------------------------------- plumbing
+    def _build(self):
+        if self.state is None:
+            gen = torch.Generator(self.device).manual_seed(self.train_cfg.seed)
+            self.state = init_state(self.model, gen, self.device)
+        self._train_step = make_train_step(self.model, self.train_cfg)
+        self._eval_step = make_eval_step(self.model)
+        self._data_iter = iter(self.data)
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+
+    # ------------------------------------------------------------ functions
+    def train_steps(self, n_steps: int = 10, **_) -> dict:
+        """Run n training steps; raises NodeFailure at the injected step."""
+        t0 = time.time()
+        metrics = {}
+        for _ in range(n_steps):
+            step_now = int(self.state.step)
+            if self.inject_failure_at is not None and step_now >= self.inject_failure_at:
+                self.inject_failure_at = None
+                raise NodeFailure(f"simulated device loss at step {step_now}")
+            batch = self._to_device(next(self._data_iter))
+            self.state, metrics = self._train_step(self.state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        record = {"step": int(self.state.step), "seconds": time.time() - t0, **metrics}
+        self.history.append(record)
+        return record
+
+    def evaluate(self, n_batches: int = 2, **_) -> dict:
+        losses = [
+            float(self._eval_step(self.state.params,
+                                  self._to_device(self.data.batch_at(10_000 + i)))["loss"])
+            for i in range(n_batches)
+        ]
+        return {"eval_loss": float(np.mean(losses)), "step": int(self.state.step)}
+
+    def save_checkpoint(self, synchronous: bool = True, **_) -> dict:
+        step = int(self.state.step)
+        if synchronous:
+            path = ckpt.save(self.ckpt_dir, step, self.state)
+        else:
+            self.checkpointer.save(step, self.state)
+            path = f"{self.ckpt_dir}/step_{step:08d} (async)"
+        return {"checkpoint": path, "step": step}
+
+    def restore_latest(self, **_) -> dict:
+        self.checkpointer.wait()
+        self.state, meta = ckpt.restore(self.ckpt_dir, self.state)
+        return {"restored_step": meta["step"]}
+
+    def reshard(self, mesh, **_) -> dict:
+        raise NotImplementedError(
+            "reshard needs a device mesh and sharded state; the port has no "
+            "parallel/sharding.py yet (ROADMAP.md)"
+        )
+
+    def export_metrics(self, **_) -> dict:
+        return {"history": self.history[-20:], "step": int(self.state.step)}
+
+    # -------------------------------------------------------- registration
+    def register_all(self, compute_provider, endpoint_name="training-fabric",
+                     mode="inline") -> dict:
+        """Register every fabric function with a Compute action provider.
+
+        Returns {"endpoint_id": ..., "functions": {name: function_id}}.
+        """
+        eid = compute_provider.register_endpoint(endpoint_name, mode=mode)
+        fns = {}
+        for name in ("train_steps", "evaluate", "save_checkpoint",
+                     "restore_latest", "export_metrics"):
+            fns[name] = compute_provider.register_function(getattr(self, name), name=name)
+        return {"endpoint_id": eid, "functions": fns}

@@ -4,8 +4,9 @@ The port's plain version (``repro_torch.kernels.ref.attention_ref``) and its
 CPU route of ``repro_torch.kernels.ops.flash_attention`` are held against the
 JAX oracle ``repro.kernels.ref.attention_ref`` and the Pallas kernel run in
 interpret mode, over the grid of ``tests/kernels/test_kernels.py`` plus
-ragged lengths and a grouped, softcapped D 128 case.  The CUDA kernel itself runs only on the card; ``chip_smoke.py``
-holds it against the plain version there.
+ragged lengths, a grouped, softcapped D 128 case and the head dims 96 and 112
+with a window and a softcap.  The CUDA kernel itself runs only on the card;
+``chip_smoke.py`` holds it against the plain version there.
 """
 
 import functools
@@ -39,6 +40,14 @@ CASES = [
     # with softcap
     (1, 37, 4, 2, 64, True, 16, None),        # S 37, window 16
     (1, 128, 8, 2, 128, True, None, 30.0),    # G 4, head_dim 128, softcap
+    # head dims whose rows are not whole 128-byte slabs of the bf16 kernel's
+    # tiles: phi3-mini's 96 and zamba2's shared block's 112
+    (1, 128, 4, 2, 96, True, None, None),     # head_dim 96
+    (1, 256, 2, 2, 96, True, 64, None),       # head_dim 96, window
+    (1, 128, 4, 2, 96, True, None, 30.0),     # head_dim 96, softcap
+    (1, 128, 4, 2, 112, True, None, None),    # head_dim 112
+    (1, 256, 2, 2, 112, True, 64, None),      # head_dim 112, window
+    (1, 128, 4, 2, 112, True, None, 30.0),    # head_dim 112, softcap
 ]
 
 
@@ -81,6 +90,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention(q, k, v)
     assert fa_kernel.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 48, 64, 80, 96, 112, 128, 136, 512])
+def test_kernel_wrapper_head_dims(D):
+    """The kernel takes every multiple of 16 from 16 to 128 (on the CPU the
+    wrapper then stops at the device) and refuses any other head dim."""
+    q, k, v = (torch.zeros(1, 4, 2, D) for _ in range(3))
+    takes = D % 16 == 0 and 16 <= D <= 128
+    assert (D in fa_kernel.HEAD_DIMS) == takes
+    with pytest.raises(ValueError, match="CUDA" if takes else "multiple of 16 from 16 to 128"):
+        fa_kernel.flash_attention(q, k, v)
 
 
 def test_ops_routes_cpu_tensors_to_the_plain_version():

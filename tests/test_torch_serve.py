@@ -255,6 +255,12 @@ def _imports(path: Path) -> list[str]:
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # the training slice's modules and the control plane's copy among them
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "train/optimizer", "train/loop", "train/data", "train/checkpoint", "train/fabric",
+        "parallel/compression", "launch/train", "core/flows_service", "core/engine",
+        "core/process_backend", "core/providers/compute")} <= names
     bad = [(f.relative_to(ROOT).as_posix(), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro") or name == "repro"]
     assert not bad
