@@ -38,8 +38,24 @@ Phases, each of which raises on failure (a non-zero exit):
               apply_moe(use_gmm=True) against use_gmm=False on layer 0's real
               input (gmm 3 launches a call), and a mixtral SMOKE model on the
               card held against the CPU;
-8. launcher - ``repro_torch.launch.serve.main`` for internlm2-1.8b, zamba2-7b
-              and mixtral-8x7b;
+8. whisper-medium - full size (24 + 24 layers, d 1024, 16 heads of 64, f32
+              params drawn from seed 0, bf16 compute, "flash"): make_eval_step
+              on 2 batches of 8 x (1500 frames, 448 tokens), flash_attention 48
+              launches a batch, 24 of them non-causal (the encoder); logits
+              through flash held against xla (f32 at full depth, bf16 at the
+              first encoder and decoder layer); ServeEngine.generate(frames=)
+              on 2 batches of 8 requests (prompts of 4 and 64 tokens, 32 new
+              tokens), 48 launches a prefill batch; a SMOKE model on the card
+              held against the CPU;
+    xlstm-1.3b - full size (42 mLSTM + 6 sLSTM blocks, d 2048, f32 params drawn
+              from seed 0, bf16 compute): make_eval_step on 2 batches of 8 x
+              512 with no kernel launched and the sLSTM blocks' share of a
+              batch; 16 requests served through BatchAccumulator; 2 steps of
+              make_train_step (remat "full"), finite loss and gradients in
+              every leaf; a SMOKE model on the card held against the CPU;
+    launcher - ``repro_torch.launch.serve.main`` for internlm2-1.8b, zamba2-7b,
+              mixtral-8x7b and xlstm-1.3b, and ``--via-flows``, whose flow
+              must end SUCCEEDED;
 9. phi3-mini-3.8b - full width and depth (32 heads of 96, f32 params drawn
               from seed 0, bf16 compute, "flash"): one prefill batch of 8 x 512
               launches flash_attention 32 times, and its logits are held
@@ -58,9 +74,9 @@ Phases, each of which raises on failure (a non-zero exit):
               bytes and save and restore seconds); the training launcher at
               SMOKE; and a backward through each kernel route, which raises.
 
-The last four lines of standard output are the training phase's JSON record,
-the kernels' JSON record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+The last five lines of standard output are the xLSTM phase's and the
+training phase's JSON records, the kernels' JSON record, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-ablation
     python3 chip_smoke.py --scan-ablation
@@ -75,6 +91,7 @@ the repository's ``src/``; without either they exit non-zero.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import re
 import shutil
@@ -177,10 +194,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # name, dtype, B, S, T, H, K, D, causal, window, softcap.  Timed: internlm2's
 # prefill (the slice shape of the kernels' JSON line), mixtral's eval and
 # prefill (window 4096 >= T, so the mask is the causal one), the slice shape in
-# f32, which runs on the FMA kernel, and the two head dims whose rows are not a
+# f32, which runs on the FMA kernel, the two head dims whose rows are not a
 # whole number of 128-byte slabs: phi3-mini's prefill (32 heads of 96) and
-# zamba2's shared block (32 heads of 112), in bf16 and f32.
+# zamba2's shared block (32 heads of 112), in bf16 and f32, and whisper-medium's
+# bidirectional encoder (16 heads of 64 over 1500 frames).
 SLICE_CASE = ("slice", "bfloat16", 8, 512, 512, 16, 8, 128, True, None, None)
+WHISPER_ENCODER_CASE = ("whisper_encoder", "bfloat16", 8, 1500, 1500, 16, 16, 64, False, None,
+                        None)
 FLASH_TIMED = [
     SLICE_CASE,
     ("mixtral", "bfloat16", 8, 512, 512, 32, 8, 128, True, 4096, None),
@@ -189,6 +209,9 @@ FLASH_TIMED = [
     ("phi3_d96_f32", "float32", 8, 512, 512, 32, 32, 96, True, None, None),
     ("zamba2_d112", "bfloat16", 8, 512, 512, 32, 32, 112, True, None, None),
     ("zamba2_d112_f32", "float32", 8, 512, 512, 32, 32, 112, True, None, None),
+    # whisper-medium's encoder: bidirectional over 1500 frames, ragged against
+    # the 64-row and 64-column tiles in both directions, every K block visited
+    WHISPER_ENCODER_CASE,
 ]
 EDGE_CASES = [
     ("ragged", "bfloat16", 2, 100, 100, 16, 8, 128, True, None, None),
@@ -281,19 +304,22 @@ def check_attention_kernel() -> dict:
             rec = {"max_abs_err": err}
             rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
             rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, **kw))
-            # the library yardstick: causal SDPA (every timed window covers T)
-            # on the same tensors, laid out [B,H,S,D] outside the timed region;
-            # the port never calls it.  Its f32 check is looser: it only shows
-            # that SDPA computes the same function, by whatever arithmetic.
-            check(causal and (window is None or window >= T), f"{name}: SDPA mask differs")
+            # the library yardstick: SDPA with the case's causality (every
+            # timed window covers T, and S = T, so SDPA's causal mask is the
+            # kernel's) on the same tensors, laid out [B,H,S,D] outside the
+            # timed region; the port never calls it.  Its f32 check is looser:
+            # it only shows that SDPA computes the same function, by whatever
+            # arithmetic.
+            check((window is None or window >= T) and (not causal or S == T),
+                  f"{name}: SDPA mask differs")
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                  enable_gqa=True)
             lib_tol = TOL[dtype] if dtype == "bfloat16" else 1e-3
             torch.testing.assert_close(lib.transpose(1, 2).float(), expected.float(),
                                        rtol=lib_tol, atol=lib_tol)
             rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
             rec["bound_ms"], rec["bound_by"] = attention_bound_ms(case)
             print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
                   f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -692,6 +718,7 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels import moe_gmm as mg
 
     fa.flash_attention.launches = 0
+    fa.flash_attention.noncausal_launches = 0
     ms.mamba_scan.launches = 0
     mg.gmm.launches = 0
 
@@ -895,13 +922,24 @@ def rerouted_tokens(a: list, b: list) -> list[int]:
     return [int((da.any(-1) != db.any(-1)).any(-1).sum()) for (da, _, _), (db, _, _) in zip(a, b)]
 
 
-def evaluate(model, params, per_batch: dict, shallow: int, shallow_tol: float,
-             n_batches: int = 2, B: int = 8, S: int = 512):
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` at its first ``n_layers`` layers (an enc-dec model's encoder too)."""
+    if cfg.family == "encdec":
+        return cfg.replace(n_layers=n_layers, n_encoder_layers=n_layers)
+    return cfg.replace(n_layers=n_layers)
+
+
+def evaluate(model, params, per_batch: dict, shallow: int | None, shallow_tol: float | None,
+             n_batches: int = 2, B: int = 8, S: int = 512, frames: int | None = None,
+             profile: bool = True):
     """make_eval_step over ``n_batches`` batches of B x S tokens (labels shifted
-    by one); each kernel must launch ``per_batch[name]`` times a batch.  The
-    forward logits of the first batch through the kernels ("flash") are held
-    against the plain routes ("xla"): f32 at full depth, bf16 at the first
-    ``shallow`` layers.  Returns (the launches, the first batch's tokens).
+    by one; with ``frames``, B x frames x d_model stub frame embeddings drawn
+    from seed 0 beside them); each kernel must launch ``per_batch[name]`` times
+    a batch.  The forward logits of the first batch through the kernels
+    ("flash") are held against the plain routes ("xla"): f32 at full depth,
+    bf16 at the first ``shallow`` layers (``shallow`` None: a model with no
+    kernel on its path, whose two routes are one, is not compared).  Returns
+    (the launches, the first batch).
 
     An MoE layer's top-k routing is a step function of its input: a rounding
     difference upstream flips a near-tied choice, and the token then takes
@@ -920,6 +958,10 @@ def evaluate(model, params, per_batch: dict, shallow: int, shallow_tol: float,
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (n_batches, B, S + 1))
     batches = [{"tokens": torch.as_tensor(t[:, :-1], device="cuda"),
                 "labels": torch.as_tensor(t[:, 1:], device="cuda")} for t in tokens]
+    if frames:
+        gen = torch.Generator("cuda").manual_seed(0)
+        for batch in batches:
+            batch["frames"] = torch.randn(B, frames, cfg.d_model, generator=gen, device="cuda")
     eval_step(params, batches[0])  # set-up (cuBLAS handles, the kernel library's load)
     torch.cuda.synchronize()
 
@@ -930,11 +972,14 @@ def evaluate(model, params, per_batch: dict, shallow: int, shallow_tol: float,
         losses.append(eval_step(params, batch)["loss"].item())
         times.append(time.perf_counter() - t0)
     launches = launch_counts()
-    print(f"  eval {n_batches} batches of {B} x {S} tokens: ms per batch "
+    shape = f"{B} x {S} tokens" + (f" and {frames} frames" if frames else "")
+    print(f"  eval {n_batches} batches of {shape}: ms per batch "
           f"{[round(1e3 * t, 3) for t in times]}, loss {losses}; kernel launches {launches}")
     check(all(np.isfinite(losses)), f"eval loss not finite: {losses}")
     want = {name: n * n_batches for name, n in per_batch.items()}
     check(launches == want, f"eval launched {launches}, want {want}")
+    if shallow is None:
+        return launches, batches[0]
 
     logits = {}
     moe = cfg.moe is not None
@@ -942,7 +987,7 @@ def evaluate(model, params, per_batch: dict, shallow: int, shallow_tol: float,
     with torch.inference_mode():
         for n_layers, dtype in ((cfg.n_layers, "float32"), (cfg.n_layers, "bfloat16"),
                                 (shallow, "bfloat16")):
-            run_cfg = cfg.replace(n_layers=n_layers, compute_dtype=dtype)
+            run_cfg = cut_depth(cfg, n_layers).replace(compute_dtype=dtype)
             tapes = {"xla": [], "flash": []}
             runs = [("xla", "xla", tapes["xla"], None), ("flash", "flash", tapes["flash"], None)]
             if moe:
@@ -978,8 +1023,9 @@ def evaluate(model, params, per_batch: dict, shallow: int, shallow_tol: float,
     check(rel_sh <= shallow_tol,
           f"flash bf16 logits at the first {shallow} layers differ from xla bf16: {rel_sh}")
     del logits, xla32
-    _profile("eval (1 batch)", lambda: eval_step(params, batches[0]))
-    return launches, batches[0]["tokens"]
+    if profile:
+        _profile("eval (1 batch)", lambda: eval_step(params, batches[0]))
+    return launches, batches[0]
 
 
 def serve_and_profile(model, params, per_batch: dict, n_requests: int = 16,
@@ -1058,10 +1104,13 @@ def check_gmm_route(cfg, params, inputs: dict) -> int:
     return launch_counts()["gmm"]
 
 
-def smoke_model_card_vs_cpu(arch: str, kernel: str) -> None:
+def smoke_model_card_vs_cpu(arch: str, kernel: str | None) -> None:
     """An ``arch`` SMOKE model in f32 on the card against the same weights on
     the CPU: forward logits (``kernel`` against its plain version inside, once
-    per layer), prefill logits and every cache leaf, and 4 decode steps."""
+    per layer, twice for an enc-dec model; None: a model with no kernel on
+    its path, and none may launch), prefill logits and every cache leaf, and
+    4 decode steps.  An enc-dec model also takes 24 frames, and its prompt
+    stays inside its 32 decoder positions."""
     import numpy as np
     import torch
 
@@ -1076,32 +1125,222 @@ def smoke_model_card_vs_cpu(arch: str, kernel: str) -> None:
     params = model.init(torch.Generator("cpu").manual_seed(0), device="cpu")
     redraw_params_(params, seed=0)
     gpu_params = L.map_tree(lambda t: t.cuda(), params)
-    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 41)))
-    prompt, max_len = tokens[:, :37], 41
+    rng = np.random.default_rng(1)
+    encdec = cfg.family == "encdec"
+    n_prompt = 20 if encdec else 37
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, n_prompt + 4)))
+    prompt, max_len = tokens[:, :n_prompt], n_prompt + 4
+    extra = {"frames": torch.as_tensor(rng.standard_normal((4, 24, cfg.d_model)),
+                                       dtype=torch.float32)} if encdec else {}
+    cpu_batch = {"tokens": prompt, **extra}
+    gpu_batch = {k: v.cuda() for k, v in cpu_batch.items()}
+    per_forward = 0 if kernel is None else cfg.n_layers + cfg.n_encoder_layers
     tol = dict(rtol=SMOKE_TOL, atol=SMOKE_TOL)
-    before = launch_counts()[kernel]
+    before = launch_counts()
     with torch.inference_mode():
-        cpu_fwd, cpu_aux = model.forward(params, {"tokens": prompt})
-        gpu_fwd, gpu_aux = model.forward(gpu_params, {"tokens": prompt.cuda()})
-        check(launch_counts()[kernel] == before + cfg.n_layers,
-              f"SMOKE forward on the card did not launch {kernel} once per layer")
+        cpu_fwd, cpu_aux = model.forward(params, cpu_batch)
+        gpu_fwd, gpu_aux = model.forward(gpu_params, gpu_batch)
+        want = {**before, **({kernel: before[kernel] + per_forward} if kernel else {})}
+        check(launch_counts() == want,
+              f"SMOKE forward on the card launched {launch_counts()}, want {want}")
         torch.testing.assert_close(gpu_fwd.cpu(), cpu_fwd, **tol)
         torch.testing.assert_close(torch.as_tensor(gpu_aux).cpu(), torch.as_tensor(cpu_aux),
                                    **tol)
-        cpu_logits, cpu_cache = model.prefill(params, {"tokens": prompt}, max_len)
-        gpu_logits, gpu_cache = model.prefill(gpu_params, {"tokens": prompt.cuda()}, max_len)
+        cpu_logits, cpu_cache = model.prefill(params, cpu_batch, max_len)
+        gpu_logits, gpu_cache = model.prefill(gpu_params, gpu_batch, max_len)
         torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, **tol)
         gpu_leaves = dict(L.flatten_specs(gpu_cache))
         for path, leaf in L.flatten_specs(cpu_cache):
             if leaf is not None:
-                torch.testing.assert_close(gpu_leaves[path].cpu(), leaf, **tol)
-        for pos in range(37, 41):
+                torch.testing.assert_close(gpu_leaves[path], leaf, **tol,
+                                           check_device=False)
+        for pos in range(n_prompt, n_prompt + 4):
             new = tokens[:, pos:pos + 1]
             cpu_logits, cpu_cache = model.decode_step(params, new, cpu_cache, pos)
             gpu_logits, gpu_cache = model.decode_step(gpu_params, new.cuda(), gpu_cache, pos)
             torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, **tol)
     print(f"  {arch} SMOKE, card vs CPU (f32): forward, prefill logits and caches, "
           f"4 decode steps agree within {SMOKE_TOL}")
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: whisper-medium and xlstm-1.3b
+# ---------------------------------------------------------------------------
+
+# whisper-medium's audio length (30 s of log-mel frames after the stub
+# frontend) and its decoder's learned positions
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+# the serving batches' prompt lengths: prompt + new tokens stay within 448
+WHISPER_PROMPTS = (4, 64)
+
+
+def whisper(max_new: int = 32) -> dict:
+    """whisper-medium at full size (24 + 24 layers, d 1024, 16 heads of 64,
+    f32 params redrawn from seed 0, bf16 compute, "flash"): make_eval_step on
+    2 batches of 8 x (1500 frames, 448 tokens), flash launching 48 times a
+    batch, 24 of them non-causal (the encoder); logits through flash held
+    against xla (f32 at full depth, bf16 at the first encoder and decoder
+    layer); then ServeEngine.generate(frames=) on 2 batches of 8 requests
+    (prompts of 4 and 64 tokens, 32 new tokens), 48 flash launches a prefill
+    batch.  Returns the launches of each run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.loop import make_eval_step
+
+    model, params = big_model("whisper-medium")
+    cfg = model.cfg
+    per_batch = cfg.n_layers + cfg.n_encoder_layers
+    launches, batch = evaluate(model, params, {"flash_attention": per_batch, "mamba_scan": 0,
+                                               "gmm": 0},
+                               shallow=SHALLOW_LAYERS, shallow_tol=PREFILL_SHALLOW_BF16_TOL,
+                               S=WHISPER_TOKENS, frames=WHISPER_FRAMES)
+    # which of one batch's launches are the encoder's (non-causal)
+    reset_launch_counts()
+    make_eval_step(model)(params, batch)
+    torch.cuda.synchronize()
+    one = launch_counts()["flash_attention"]
+    noncausal = fa.flash_attention.noncausal_launches
+    print(f"  one more eval batch: flash launched {one} times, {noncausal} of them non-causal")
+    check(one == per_batch and noncausal == cfg.n_encoder_layers,
+          f"whisper eval batch: {one} flash launches, {noncausal} non-causal; want "
+          f"{per_batch}, {cfg.n_encoder_layers}")
+    out = {"eval": launches["flash_attention"], "eval_batch_noncausal": noncausal}
+
+    prefill_s, decode_s = [], []
+    model.prefill = _timed(model.prefill, prefill_s)
+    model.decode_step = _timed(model.decode_step, decode_s)
+    engine = ServeEngine(model, params, device="cuda")
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal((8, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)
+    batches = [rng.integers(0, cfg.vocab_size, (8, n)).astype(np.int32) for n in WHISPER_PROMPTS]
+    engine.generate(batches[0], max_new_tokens=2, frames=frames)  # set-up
+    prefill_s.clear()
+    decode_s.clear()
+    engine.stats = dict.fromkeys(engine.stats, 0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = [engine.generate(b, max_new_tokens=max_new, frames=frames) for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_launches = launch_counts()
+    noncausal = fa.flash_attention.noncausal_launches
+    for r in results:
+        toks = np.asarray(r["tokens"])
+        check(toks.shape == (8, max_new), f"bad token shape {toks.shape}")
+        check(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token out of range")
+    tokens = engine.stats["tokens_generated"]
+    print(f"  served 2 batches of 8 requests (prompts of {WHISPER_PROMPTS} tokens, {WHISPER_FRAMES} "
+          f"frames each), {tokens} tokens in {wall:.3f} s: {tokens / wall:.1f} tok/s; kernel "
+          f"launches {serve_launches}, {noncausal} of flash's non-causal")
+    print(f"  prefill ms per batch: {[round(1e3 * t, 3) for t in prefill_s]}; decode ms per "
+          f"token step (median of {len(decode_s)}): {1e3 * float(np.median(decode_s)):.3f}")
+    want = {"flash_attention": 2 * per_batch, "mamba_scan": 0, "gmm": 0}
+    check(serve_launches == want, f"whisper serving launched {serve_launches}, want {want}")
+    check(noncausal == 2 * cfg.n_encoder_layers, f"{noncausal} non-causal launches")
+    out.update(serve=serve_launches["flash_attention"], serve_noncausal=noncausal)
+    del model.prefill, model.decode_step
+    with torch.inference_mode():
+        tok = torch.as_tensor(batches[1], device="cuda")
+        batch = {"tokens": tok, "frames": torch.as_tensor(frames, device="cuda")}
+        _profile("whisper prefill (1 batch)", lambda: model.prefill(params, batch, None))
+        _, cache = model.prefill(params, batch, None)
+        _profile("whisper decode (8 steps)", lambda: [
+            model.decode_step(params, tok[:, -1:], cache, tok.shape[1] + i) for i in range(8)])
+    del model, params, engine, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+XLSTM_TRAIN_STEPS = 2
+
+
+def xlstm() -> dict:
+    """xlstm-1.3b at full size (48 layers: 42 mLSTM and 6 sLSTM, d 2048, f32
+    params redrawn from seed 0, bf16 compute): make_eval_step on 2 batches of
+    8 x 512 with no kernel launched, the sLSTM blocks' share of one batch's
+    time (host clock around synchronised calls), 16 requests served through
+    BatchAccumulator (prompts 128-512, 32 new tokens, batch 8), then
+    XLSTM_TRAIN_STEPS steps of make_train_step (remat "full") with a finite
+    loss and finite gradients in every leaf.  Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.model import Model
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt
+
+    none = {"flash_attention": 0, "mamba_scan": 0, "gmm": 0}
+    model, params = big_model("xlstm-1.3b")
+    cfg = model.cfg
+    _, batch = evaluate(model, params, none, shallow=None, shallow_tol=None, profile=False)
+
+    # where one eval batch's time goes: the sLSTM blocks (a 512-step loop each)
+    # and the mLSTM blocks, each call timed to a synchronise
+    block_s = {"slstm": [], "mlstm": []}
+    real = {name: getattr(xlstm_mod, f"apply_{name}_block") for name in block_s}
+    for name in block_s:
+        setattr(xlstm_mod, f"apply_{name}_block", _timed(real[name], block_s[name]))
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.loss(params, batch).item()
+            total = time.perf_counter() - t0
+    finally:
+        for name in block_s:
+            setattr(xlstm_mod, f"apply_{name}_block", real[name])
+    out = {"eval_ms": 1e3 * total,
+           **{f"{name}_ms": 1e3 * sum(t) for name, t in block_s.items()}}
+    print(f"  one eval batch timed by block: {out['eval_ms']:.3f} ms, sLSTM blocks "
+          f"{out['slstm_ms']:.3f} ms ({100 * out['slstm_ms'] / out['eval_ms']:.1f} %, "
+          f"{len(block_s['slstm'])} calls), mLSTM blocks {out['mlstm_ms']:.3f} ms "
+          f"({100 * out['mlstm_ms'] / out['eval_ms']:.1f} %, {len(block_s['mlstm'])} calls)")
+
+    serve_and_profile(model, params, none)
+
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=XLSTM_TRAIN_STEPS)
+    state = loop.TrainState(params, opt.init_adamw(params))
+    bad_grads = []
+    real_update = opt.adamw_update
+
+    def update(p, grads, s, tc):
+        bad_grads.extend("/".join(path) for path, g in L.flatten_specs(grads)
+                         if not bool(torch.isfinite(g).all()))
+        return real_update(p, grads, s, tc)
+
+    step_fn = loop.make_train_step(Model(cfg.replace(remat_policy="full")), tcfg)
+    data = _train_batches(cfg, XLSTM_TRAIN_STEPS, TRAIN_B, TRAIN_S)
+    opt.adamw_update = update
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    try:
+        for i, b in enumerate(data):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            losses.append(metrics["loss"].item())
+            times.append(time.perf_counter() - t0)
+            print(f"  train step {i + 1}: loss {losses[-1]:.6f}, grad norm "
+                  f"{metrics['grad_norm'].item():.4f}, {1e3 * times[-1]:.3f} ms")
+    finally:
+        opt.adamw_update = real_update
+    check(launch_counts() == none, f"xlstm training launched {launch_counts()}")
+    check(all(np.isfinite(losses)), f"xlstm training loss not finite: {losses}")
+    check(not bad_grads, f"non-finite gradients in {sorted(set(bad_grads))}")
+    out.update(train_losses=losses, train_step_ms=[1e3 * t for t in times],
+               train_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  {XLSTM_TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} (remat full): gradients "
+          f"finite in every leaf, peak memory {out['train_peak_memory_gb']:.2f} GB")
+    del state, params, model, data
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1525,7 +1764,7 @@ def ablation(kernel: str) -> int:
             kw = dict(causal=causal, window=window, logit_softcap=softcap)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
             bound, by = attention_bound_ms(case)
             runs.append((name, f"SDPA {sdpa:.4f} ms, bound {bound:.4f} ms ({by})",
                          lambda q=q, k=k, v=v, kw=kw: fa.flash_attention(q, k, v, **kw)))
@@ -1612,22 +1851,37 @@ def main() -> int:
     print(f"== mixtral-8x7b ({MIXTRAL_LAYERS} of 32 layers): evaluate")
     model, params = big_model("mixtral-8x7b", n_layers=MIXTRAL_LAYERS)
     flash_only = {"flash_attention": model.cfg.n_layers, "mamba_scan": 0, "gmm": 0}
-    _, eval_tokens = evaluate(model, params, flash_only, shallow=SHALLOW_LAYERS,
-                              shallow_tol=PREFILL_SHALLOW_BF16_TOL)
+    _, eval_batch = evaluate(model, params, flash_only, shallow=SHALLOW_LAYERS,
+                             shallow_tol=PREFILL_SHALLOW_BF16_TOL)
     print("== mixtral-8x7b: serve")
     prompts = serve_and_profile(model, params, flash_only)
     print("== mixtral-8x7b: apply_moe through gmm")
-    gmm_launches = check_gmm_route(model.cfg, params, {"eval": eval_tokens,
+    gmm_launches = check_gmm_route(model.cfg, params, {"eval": eval_batch["tokens"],
                                                        "serve": first_batch(prompts)})
     del model, params
     torch.cuda.empty_cache()
     smoke_model_card_vs_cpu("mixtral-8x7b", "flash_attention")
 
+    print("== whisper-medium: evaluate and serve")
+    whisper_launches = whisper()
+    smoke_model_card_vs_cpu("whisper-medium", "flash_attention")
+
+    print("== xlstm-1.3b: evaluate, serve and train")
+    xlstm_record = xlstm()
+    smoke_model_card_vs_cpu("xlstm-1.3b", None)
+
     print("== launcher")
     from repro_torch.launch.serve import main as serve_main
 
-    for argv in ([], ["--arch", "zamba2-7b"], ["--arch", "mixtral-8x7b"]):
-        check(serve_main(argv) == 0, f"launcher failed for {argv}")
+    for argv in ([], ["--arch", "zamba2-7b"], ["--arch", "mixtral-8x7b"],
+                 ["--arch", "xlstm-1.3b"], ["--via-flows"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = serve_main(argv)
+        print(out.getvalue(), end="")
+        check(code == 0, f"launcher failed for {argv}")
+        check("--via-flows" not in argv or ": SUCCEEDED" in out.getvalue(),
+              "the serving flow did not succeed")
 
     print("== phi3-mini-3.8b: prefill (head_dim 96)")
     phi3_launches = prefill_phi3()
@@ -1653,6 +1907,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:118",
         "launches": fa_launches, "phi3_prefill_launches": phi3_launches,
+        "whisper_launches": whisper_launches,
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
@@ -1678,6 +1933,7 @@ def main() -> int:
         # the same fields at the other timed shapes
         **{name: rec for name, rec in gmm_records.items() if name != GMM_SLICE[0]},
     }]
+    print(json.dumps({"xlstm": xlstm_record}))
     print(json.dumps({"train": training}))
     print(json.dumps({"kernels": kernels}))
     print(card)

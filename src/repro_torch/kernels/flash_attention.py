@@ -81,7 +81,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    if not causal:
+        flash_attention.noncausal_launches += 1
     return out
 
 
 flash_attention.launches = 0  # kernel launches since the last reset
+flash_attention.noncausal_launches = 0  # of which with causal=False

@@ -1,8 +1,7 @@
-"""Grouped-query attention with RoPE, causal/sliding-window masking and KV
-caches for decode.
+"""Grouped-query attention with RoPE, causal/sliding-window masking, KV
+caches for decode, and cross-attention (enc-dec).
 
-Counterpart of ``repro/models/attention.py`` (self-attention only; the
-enc-dec cross-attention comes with whisper).  Two implementations:
+Counterpart of ``repro/models/attention.py``.  Two implementations:
 
 * ``xla``   - einsum + softmax (:func:`attend_xla`), the reference's name kept;
 * ``flash`` - the hand-written CUDA kernel through
@@ -18,8 +17,8 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
 
 
-def init_attention(cfg: ModelConfig):
-    d = cfg.d_model
+def init_attention(cfg: ModelConfig, d_model: int | None = None):
+    d = d_model or cfg.d_model
     hd = cfg.resolved_head_dim
     return {
         "wq": L.init_dense(d, cfg.n_heads * hd, cfg.use_qkv_bias),
@@ -100,33 +99,55 @@ def init_kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, dtype, dev
     }
 
 
+def clamped_start(start: int, size: int, length: int) -> int:
+    """The start index ``jax.lax.dynamic_slice_in_dim`` and
+    ``dynamic_update_slice_in_dim`` use: ``start`` clamped into
+    ``[0, length - size]``, so that a slice of ``size`` fits.  Past the end
+    (a decoder position at or beyond whisper's 448) the reference reads and
+    writes the last ``size`` rows instead of raising."""
+    return min(max(start, 0), length - size)
+
+
+def write_kv(cache: dict, k: torch.Tensor, v: torch.Tensor, cache_position: int) -> None:
+    """Writes k, v [B,S,K,D] into ``cache`` [B,T,K,D] in place at
+    ``cache_position``, clamped as the reference's
+    ``dynamic_update_slice_in_dim`` clamps it; the reference returns a new
+    array instead.  The cache may be a view of the stacked [L, ...] cache."""
+    S = k.shape[1]
+    start = clamped_start(cache_position, S, cache["k"].shape[1])
+    cache["k"][:, start:start + S] = k
+    cache["v"][:, start:start + S] = v
+
+
 def apply_attention(
     params,
     cfg: ModelConfig,
     x: torch.Tensor,                    # [B, S, D_model]
     positions: torch.Tensor,            # [S] or [B, S]
     *,
+    causal: bool = True,
+    use_rope: bool = True,
     cache: dict | None = None,          # prefill/decode: KV cache for this layer
     cache_position: int | None = None,  # write offset into the cache
     window: int | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
-    """Self-attention (train/prefill/decode).  Returns (out, updated_cache)."""
+    """Self-attention (train/prefill/decode).  Returns (out, updated_cache).
+
+    With a cache the attention is causal whatever ``causal`` says, as in the
+    reference (``repro/models/attention.py:149-166``)."""
     hd = cfg.resolved_head_dim
     q = _split_heads(L.apply_dense(params["wq"], x), cfg.n_heads, hd)
     k = _split_heads(L.apply_dense(params["wk"], x), cfg.n_kv_heads, hd)
     v = _split_heads(L.apply_dense(params["wv"], x), cfg.n_kv_heads, hd)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
         S = x.shape[1]
-        # Written in place into the caller's preallocated cache (which may be
-        # a view of the stacked [L, ...] cache); the reference returns a new
-        # array from dynamic_update_slice instead.
+        write_kv(cache, k, v, cache_position)
         ck, cv = cache["k"], cache["v"]
-        ck[:, cache_position:cache_position + S] = k
-        cv[:, cache_position:cache_position + S] = v
         new_cache = cache
         if (cfg.attention_impl == "flash" and isinstance(cache_position, int)
                 and cache_position == 0):
@@ -156,10 +177,35 @@ def apply_attention(
     else:
         out = attend(
             cfg, q, k, v,
-            causal=True,
+            causal=causal,
             q_positions=positions,
             kv_positions=positions,
             window=window,
             logit_softcap=cfg.attn_logit_softcap,
         )
     return L.apply_dense(params["wo"], _merge_heads(out)), new_cache
+
+
+def init_cross_attention(cfg: ModelConfig):
+    return init_attention(cfg)
+
+
+def apply_cross_attention(
+    params,
+    cfg: ModelConfig,
+    x: torch.Tensor,   # [B, S_dec, D]
+    enc_kv: dict,      # precomputed {"k","v"}: [B, S_enc, K, D]
+) -> torch.Tensor:
+    """Decoder queries against the encoder's keys and values: attend_xla,
+    unmasked, under either ``attention_impl`` (as in the reference)."""
+    hd = cfg.resolved_head_dim
+    q = _split_heads(L.apply_dense(params["wq"], x), cfg.n_heads, hd)
+    out = attend_xla(q, enc_kv["k"], enc_kv["v"], causal=False)
+    return L.apply_dense(params["wo"], _merge_heads(out))
+
+
+def precompute_cross_kv(params, cfg: ModelConfig, enc_out: torch.Tensor) -> dict:
+    hd = cfg.resolved_head_dim
+    k = _split_heads(L.apply_dense(params["wk"], enc_out), cfg.n_kv_heads, hd)
+    v = _split_heads(L.apply_dense(params["wv"], enc_out), cfg.n_kv_heads, hd)
+    return {"k": k, "v": v}

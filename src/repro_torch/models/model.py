@@ -7,10 +7,17 @@
     logits, cache = model.prefill(params, batch, max_len)
     logits, cache = model.decode_step(params, tokens, cache, position)
 
-Counterpart of ``repro/models/model.py`` for the ``dense``, ``vlm``, ``moe``
-and ``hybrid`` (zamba2) families.  ``batch``: tokens [B,S] (and labels [B,S],
-optionally loss_mask [B,S], for ``loss``), plus pixel_embeds [B,K,D] for vlm.
-The other families raise NotImplementedError until their slice is ported.
+Counterpart of ``repro/models/model.py`` for every family.  ``batch`` keys:
+
+    dense / moe / ssm / hybrid : tokens [B,S] (and labels [B,S], optionally
+                                 loss_mask [B,S], for ``loss``)
+    vlm                        : + pixel_embeds [B,K,D]
+    encdec                     : frames [B,S_enc,D], tokens [B,S_dec], labels
+
+For ``encdec``, ``prefill`` ignores ``max_len`` (the decoder cache is
+``max_target_positions`` long) and ``init_cache(batch, max_len)`` takes
+``max_len`` as the encoder length; ``ssm`` ignores it in both, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -20,10 +27,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 
-PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -35,6 +43,10 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 def init_spec(cfg: ModelConfig):
     _require_ported(cfg)
+    if cfg.family == "encdec":
+        return encdec_mod.init_encdec(cfg)
+    if cfg.family == "ssm":
+        return tfm.init_xlstm(cfg)
     if cfg.family == "hybrid":
         return tfm.init_zamba(cfg)
     return tfm.init_lm(cfg)
@@ -77,6 +89,10 @@ class Model:
 
     # --------------------------------------------------------------- forward
     def forward(self, params, batch):
+        if self.cfg.family == "encdec":
+            return encdec_mod.forward_encdec(params, self.cfg, batch["frames"], batch["tokens"])
+        if self.cfg.family == "ssm":
+            return tfm.forward_xlstm(params, self.cfg, batch["tokens"])
         if self.cfg.family == "hybrid":
             return tfm.forward_zamba(params, self.cfg, batch["tokens"])
         return tfm.forward_lm(params, self.cfg, batch["tokens"],
@@ -92,7 +108,11 @@ class Model:
         return ce
 
     # --------------------------------------------------------------- serving
-    def prefill(self, params, batch, max_len: int):
+    def prefill(self, params, batch, max_len: int | None):
+        if self.cfg.family == "encdec":
+            return encdec_mod.prefill_encdec(params, self.cfg, batch["frames"], batch["tokens"])
+        if self.cfg.family == "ssm":
+            return tfm.prefill_xlstm(params, self.cfg, batch["tokens"])
         if self.cfg.family == "hybrid":
             return tfm.prefill_zamba(params, self.cfg, batch["tokens"], max_len)
         return tfm.prefill_lm(params, self.cfg, batch["tokens"], max_len,
@@ -100,12 +120,20 @@ class Model:
 
     def init_cache(self, batch_size: int, max_len: int, device=None):
         cfg, dev = self.cfg, resolve_device(device)
+        dtype = tfm.compute_dtype(cfg)
+        if cfg.family == "encdec":
+            return encdec_mod.init_encdec_cache(cfg, batch_size, max_len, dtype, dev)
+        if cfg.family == "ssm":
+            return tfm.init_xlstm_cache(cfg, batch_size, dtype, dev)
         if cfg.family == "hybrid":
-            return tfm.init_zamba_cache(cfg, batch_size, max_len, tfm.compute_dtype(cfg), dev)
-        return attn_mod.init_kv_cache(cfg, cfg.n_layers, batch_size, max_len,
-                                      tfm.compute_dtype(cfg), dev)
+            return tfm.init_zamba_cache(cfg, batch_size, max_len, dtype, dev)
+        return attn_mod.init_kv_cache(cfg, cfg.n_layers, batch_size, max_len, dtype, dev)
 
     def decode_step(self, params, tokens_new, cache, position: int):
+        if self.cfg.family == "encdec":
+            return encdec_mod.decode_encdec(params, self.cfg, tokens_new, cache, position)
+        if self.cfg.family == "ssm":
+            return tfm.decode_xlstm(params, self.cfg, tokens_new, cache, position)
         if self.cfg.family == "hybrid":
             return tfm.decode_zamba(params, self.cfg, tokens_new, cache, position)
         return tfm.decode_lm(params, self.cfg, tokens_new, cache, position)

@@ -1,11 +1,10 @@
-"""Decoder-only LM assembly: the dense, MoE (and VLM-prefix) stack and
-zamba2's hybrid stack.
+"""Decoder-only LM assembly: the dense, MoE (and VLM-prefix) stack, zamba2's
+hybrid stack and the xLSTM stack.
 
-Counterpart of ``repro/models/transformer.py:82-446``.  Block parameters stay
+Counterpart of ``repro/models/transformer.py:82-556``.  Block parameters stay
 stacked with a leading layer axis ``[L, ...]``, as in the reference, so the
 weight bridge is a copy; the reference's ``lax.scan`` over that axis becomes
-a Python loop over layer views.  The xLSTM stack is a later slice (see
-ROADMAP.md).
+a Python loop over layer views.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import ParamSpec
 
 
@@ -312,9 +312,8 @@ def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
+        attn.write_kv(cache, k, v, cache_position)
         ck, cv = cache["k"], cache["v"]
-        ck[:, cache_position:cache_position + S] = k
-        cv[:, cache_position:cache_position + S] = v
         T = ck.shape[1]
         kv_pos = torch.arange(T, device=x.device)
         valid = (kv_pos[None, :] < cache_position + S).expand(B, T)
@@ -419,4 +418,101 @@ def decode_zamba(params, cfg: ModelConfig, tokens_new: torch.Tensor, caches,
                                         cfg, x, positions,
                                         cache=layer_params(caches["shared"], g),
                                         cache_position=position)
+    return lm_logits(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# xLSTM stack: super-blocks of (slstm_every - 1) mLSTM blocks + 1 sLSTM block
+# ---------------------------------------------------------------------------
+
+
+def xlstm_structure(cfg: ModelConfig):
+    """(super-blocks, mLSTM blocks per super-block)."""
+    every = cfg.xlstm.slstm_every
+    n_super = cfg.n_layers // every
+    if n_super * every != cfg.n_layers:
+        raise ValueError(f"xlstm layers must tile: {cfg.n_layers} % {every} != 0")
+    return n_super, every - 1
+
+
+def init_xlstm(cfg: ModelConfig):
+    """Params: ``super/mlstm`` stacked twice [n_super, n_m, ...] and
+    ``super/slstm`` [n_super, ...], as in the reference."""
+    n_super, n_m = xlstm_structure(cfg)
+    spec = init_lm_shell(cfg)
+    spec["super"] = {
+        "mlstm": stack_specs(stack_specs(xlstm_mod.init_mlstm_block(cfg), n_m), n_super),
+        "slstm": stack_specs(xlstm_mod.init_slstm_block(cfg), n_super),
+    }
+    return spec
+
+
+def _super_blocks(params, cfg: ModelConfig):
+    """Yields ``(s, [mLSTM block params, ...], sLSTM block params)`` per super-block."""
+    n_super, n_m = xlstm_structure(cfg)
+    mlstm = unstack(params["super"]["mlstm"], n_super)
+    slstm = unstack(params["super"]["slstm"], n_super)
+    for s in range(n_super):
+        yield s, unstack(mlstm[s], n_m), slstm[s]
+
+
+def forward_xlstm(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Training/eval forward.  Returns (logits, aux_loss = 0).  Each mLSTM
+    block is rematerialised, the sLSTM blocks are not (as in the reference)."""
+    x = embed_tokens(params, cfg, tokens)
+    inner = _remat(lambda p, x: xlstm_mod.apply_mlstm_block(p, cfg, x)[0], cfg)
+    for _, mlstm, slstm in _super_blocks(params, cfg):
+        for p in mlstm:
+            x = inner(p, x)
+        x, _ = xlstm_mod.apply_slstm_block(slstm, cfg, x)
+    return lm_logits(params, cfg, x), torch.zeros((), device=tokens.device)
+
+
+def init_xlstm_cache(cfg: ModelConfig, batch: int, dtype, device):
+    """Zeroed decode caches stacked like the params: ``mlstm`` {conv, C, n, m}
+    [n_super, n_m, ...] and ``slstm`` {"state": (h, c, n, m)} [n_super, ...]."""
+    n_super, n_m = xlstm_structure(cfg)
+    one = xlstm_mod.init_mlstm_cache(cfg, batch, dtype, device)
+    state = xlstm_mod.init_slstm_state(cfg, batch, device)
+    return {
+        "mlstm": {k: v.expand(n_super, n_m, *v.shape).clone() for k, v in one.items()},
+        "slstm": {"state": tuple(t.expand(n_super, *t.shape).clone() for t in state)},
+    }
+
+
+def _slstm_cache(caches, s: int) -> dict:
+    return {"state": tuple(t[s] for t in caches["slstm"]["state"])}
+
+
+def _store_slstm(dst: dict, src: dict) -> None:
+    for d, v in zip(dst["state"], src["state"]):
+        d.copy_(v)
+
+
+def prefill_xlstm(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Prompt pass building the mLSTM (C, n, m, conv) and sLSTM states.
+    Returns (logits of the last position, caches)."""
+    x = embed_tokens(params, cfg, tokens)
+    caches = init_xlstm_cache(cfg, tokens.shape[0], compute_dtype(cfg), tokens.device)
+    for s, mlstm, slstm in _super_blocks(params, cfg):
+        for i, p in enumerate(mlstm):
+            x, cache = xlstm_mod.apply_mlstm_block(p, cfg, x, return_cache=True)
+            _store(layer_params(layer_params(caches["mlstm"], s), i), cache)
+        x, cache = xlstm_mod.apply_slstm_block(slstm, cfg, x, return_cache=True)
+        _store_slstm(_slstm_cache(caches, s), cache)
+    return lm_logits(params, cfg, x[:, -1:, :]), caches
+
+
+def decode_xlstm(params, cfg: ModelConfig, tokens_new: torch.Tensor, caches, position: int):
+    """One decode step; ``position`` is unused (the state carries it), as in
+    the reference.  Caches are updated in place and returned."""
+    x = embed_tokens(params, cfg, tokens_new)
+    for s, mlstm, slstm in _super_blocks(params, cfg):
+        for i, p in enumerate(mlstm):
+            layer_cache = layer_params(layer_params(caches["mlstm"], s), i)
+            x, new_cache = xlstm_mod.apply_mlstm_block(p, cfg, x, cache=layer_cache)
+            _store(layer_cache, new_cache)
+        slstm_cache = _slstm_cache(caches, s)
+        x, new_cache = xlstm_mod.apply_slstm_block(slstm, cfg, x, cache=slstm_cache)
+        _store_slstm(slstm_cache, new_cache)
     return lm_logits(params, cfg, x), caches

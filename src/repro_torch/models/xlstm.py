@@ -1,0 +1,352 @@
+"""xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM (scalar
+memory, strictly recurrent), per arXiv:2405.04517.
+
+Counterpart of ``repro/models/xlstm.py`` (without the cache-axes functions:
+sharding is a later slice).  It is plain PyTorch, as the reference is plain
+JAX: no kernel of its own.  The mLSTM's parallel form is computed chunkwise:
+the O(Q^2) intra-chunk part is dense products, and the (C, n, m) state is
+carried across chunks by a loop (the reference's ``lax.scan``).  Exponential
+gating is stabilised with the running max ``m`` as in the paper (eq. 15/26).
+The sLSTM has recurrent (block-diagonal) weights and runs as a loop over
+time, one step at a time in f32.
+
+Cell equations (mLSTM, per head; q,k in R^K, v in R^V):
+    logf_t = logsigmoid(f~_t)
+    m_t   = max(m_{t-1} + logf_t, i~_t)
+    C_t   = e^{logf_t + m_{t-1} - m_t} C_{t-1} + e^{i~_t - m_t} k_t v_t^T
+    n_t   = e^{logf_t + m_{t-1} - m_t} n_{t-1} + e^{i~_t - m_t} k_t
+    h_t   = (q~_t C_t) / max(|q~_t . n_t|, e^{-m_t}),   q~ = q / sqrt(K)
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamSpec
+from repro_torch.models.ssm import _causal_conv, _conv_window
+
+# ---------------------------------------------------------------------------
+# mLSTM cell: chunkwise parallel form
+# ---------------------------------------------------------------------------
+
+
+def _denom(den: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Stabilised output denominator ``max(|q~.n|, e^{-m})`` (eq. 17/26).
+
+    ``e^{-m}`` overflows f32 to +inf once ``m < -88.7`` (strongly negative
+    gate pre-activations reach it).  The forward value stays clean (num/inf =
+    0) but the backward of ``maximum(|den|, inf)`` gives 0 * inf = NaN.  The
+    exponent is clamped at 80, still far above any attainable |den|, so the
+    selected branch and h are unchanged up to f32 underflow
+    (``repro/models/xlstm.py:36-50``; ``tests/models/test_xlstm_regression.py``)."""
+    return torch.maximum(den.abs(), torch.exp(torch.clamp(-m, max=80.0)))
+
+
+def mlstm_chunkwise(
+    q: torch.Tensor,       # [B, H, S, K]
+    k: torch.Tensor,       # [B, H, S, K]
+    v: torch.Tensor,       # [B, H, S, V]
+    i_gate: torch.Tensor,  # [B, H, S] pre-activation input gate
+    f_gate: torch.Tensor,  # [B, H, S] pre-activation forget gate
+    chunk: int,
+    state: tuple | None = None,   # (C [B,H,K,V], n [B,H,K], m [B,H])
+    return_state: bool = False,
+):
+    """h [B,H,S,V] in v's dtype (and the final (C, n, m) in f32 if asked)."""
+    Bsz, H, S, K = q.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    orig_S = S
+    if S % chunk:
+        pad = chunk - S % chunk
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        # padded steps must not perturb the carried state: i = -1e9 (no
+        # input), f~ = +1e9 (forget gate 1.0, i.e. no decay)
+        i_gate = F.pad(i_gate, (0, pad), value=-1e9)
+        f_gate = F.pad(f_gate, (0, pad), value=1e9)
+        S = q.shape[2]
+    nc = S // chunk
+    scale = 1.0 / math.sqrt(K)
+
+    def chunks(x):
+        return x.reshape(x.shape[0], x.shape[1], nc, chunk, *x.shape[3:])
+
+    qc = chunks(q).to(f32) * scale
+    kc = chunks(k).to(f32)
+    vc = chunks(v).to(f32)
+    ic = chunks(i_gate).to(f32)                  # [B,H,nc,Q]
+    b = torch.cumsum(F.logsigmoid(chunks(f_gate).to(f32)), dim=-1)  # inclusive
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+
+    if state is None:
+        C0 = torch.zeros((Bsz, H, K, V), dtype=f32, device=q.device)
+        n0 = torch.zeros((Bsz, H, K), dtype=f32, device=q.device)
+        m0 = torch.full((Bsz, H), -torch.inf, dtype=f32, device=q.device)
+    else:
+        C0, n0, m0 = (s.to(f32) for s in state)
+
+    hs = []
+    for c in range(nc):
+        qq, kk, vv, ii, bb = (t[:, :, c] for t in (qc, kc, vc, ic, b))
+        r = ii - bb                                          # [B,H,Q]
+        m_intra = bb + torch.cummax(r, dim=-1).values
+        m_inter = m0[..., None] + bb
+        m = torch.maximum(m_inter, m_intra)                  # [B,H,Q] stabiliser
+        # intra-chunk decay D[t,s] = exp(b_t - b_s + i_s - m_t), s <= t
+        expo = bb[..., :, None] - bb[..., None, :] + ii[..., None, :]
+        expo = expo.masked_fill(~causal, -torch.inf)
+        D = torch.exp(expo - m[..., :, None])
+        Smat = torch.einsum("bhtk,bhsk->bhts", qq, kk) * D
+        num = torch.einsum("bhts,bhsv->bhtv", Smat, vv)
+        den = Smat.sum(dim=-1)                               # q~.n, intra part
+        # inter-chunk contribution
+        w = torch.exp(m_inter - m)                           # [B,H,Q]
+        num = num + w[..., None] * torch.einsum("bhtk,bhkv->bhtv", qq, C0)
+        den = den + w * torch.einsum("bhtk,bhk->bht", qq, n0)
+        hs.append(num / _denom(den, m)[..., None])
+        # chunk-final state
+        b_last = bb[..., -1]
+        m_new = torch.maximum(m0 + b_last, b_last + r.max(dim=-1).values)  # [B,H]
+        g = torch.exp(b_last[..., None] - bb + ii - m_new[..., None])     # [B,H,Q]
+        decay = torch.exp(m0 + b_last - m_new)
+        C0 = decay[..., None, None] * C0 + torch.einsum("bhs,bhsk,bhsv->bhkv", g, kk, vv)
+        n0 = decay[..., None] * n0 + torch.einsum("bhs,bhsk->bhk", g, kk)
+        m0 = m_new
+
+    h = torch.stack(hs, dim=2).reshape(Bsz, H, S, V)[:, :, :orig_S].to(v.dtype)
+    if return_state:
+        return h, (C0, n0, m0)
+    return h
+
+
+def mlstm_step(q, k, v, i_gate, f_gate, state):
+    """Single-token decode step.  q,k [B,H,K]; v [B,H,V]; gates [B,H]."""
+    C0, n0, m0 = state
+    f32 = torch.float32
+    qf = q.to(f32) / math.sqrt(q.shape[-1])
+    logf = F.logsigmoid(f_gate.to(f32))
+    i32 = i_gate.to(f32)
+    m = torch.maximum(m0 + logf, i32)
+    fw = torch.exp(logf + m0 - m)
+    iw = torch.exp(i32 - m)
+    C1 = fw[..., None, None] * C0 + iw[..., None, None] * torch.einsum(
+        "bhk,bhv->bhkv", k.to(f32), v.to(f32))
+    n1 = fw[..., None] * n0 + iw[..., None] * k.to(f32)
+    num = torch.einsum("bhk,bhkv->bhv", qf, C1)
+    den = torch.einsum("bhk,bhk->bh", qf, n1)
+    h = num / _denom(den, m)[..., None]
+    return h.to(v.dtype), (C1, n1, m)
+
+
+def mlstm_reference(q, k, v, i_gate, f_gate):
+    """Sequential oracle (tests): the step-by-step recurrence."""
+    Bsz, H, S, K = q.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    state = (
+        torch.zeros((Bsz, H, K, V), dtype=f32, device=q.device),
+        torch.zeros((Bsz, H, K), dtype=f32, device=q.device),
+        torch.full((Bsz, H), -torch.inf, dtype=f32, device=q.device),
+    )
+    hs = []
+    for t in range(S):
+        h, state = mlstm_step(q[:, :, t], k[:, :, t], v[:, :, t], i_gate[:, :, t],
+                              f_gate[:, :, t], state)
+        hs.append(h)
+    return torch.stack(hs, dim=2), state
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block
+# ---------------------------------------------------------------------------
+
+
+def mlstm_dims(cfg: ModelConfig):
+    x = cfg.xlstm
+    d_inner = int(x.proj_factor * cfg.d_model)
+    n_heads = cfg.n_heads  # 4 for xlstm-1.3b
+    head_v = d_inner // n_heads
+    head_qk = max(int(head_v * x.qk_factor), 4)
+    return d_inner, n_heads, head_qk, head_v
+
+
+def init_mlstm_block(cfg: ModelConfig):
+    x = cfg.xlstm
+    d = cfg.d_model
+    d_inner, H, Kd, Vd = mlstm_dims(cfg)
+    # q/k/v are block-diagonal per head (the paper's BlockLinear): d_inner^2 / H
+    # weights instead of d_inner^2, which keeps xlstm-1.3b at 1.3 B
+    return {
+        "norm": L.init_norm(d, cfg.norm_type),
+        "up": {"w": ParamSpec((d, 2 * d_inner))},
+        "conv_w": ParamSpec((x.conv_width, d_inner)),
+        "conv_b": ParamSpec((d_inner,), init="zeros"),
+        "wq": ParamSpec((H, Vd, Kd)),
+        "wk": ParamSpec((H, Vd, Kd)),
+        "wv": ParamSpec((H, Vd, Vd)),
+        "w_if": {"w": ParamSpec((d_inner, 2 * H)), "b": ParamSpec((2 * H,), init="zeros")},
+        "head_norm": ParamSpec((d_inner,), init="ones"),
+        "skip": ParamSpec((d_inner,), init="ones"),
+        "down": {"w": ParamSpec((d_inner, d))},
+    }
+
+
+def _conv_silu(x, w, b, cache=None):
+    """Causal depthwise conv + silu; with ``cache`` (decode, S = 1) the rolling
+    window [B, W-1, C].  Returns (out, new window or None)."""
+    if cache is None:
+        return F.silu(_causal_conv(x, w, b)), None
+    window = torch.cat([cache, x], dim=1)
+    out = torch.einsum("bwc,wc->bc", window, w) + b
+    return F.silu(out)[:, None, :], window[:, 1:]
+
+
+def apply_mlstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
+                      return_cache: bool = False):
+    """x [B,S,D].  cache (decode): {"conv": [B,W-1,Di], "C", "n", "m"};
+    ``return_cache`` (prefill) builds that cache from the parallel pass.
+    Returns (x + block(x), new cache or None); the cache is a new dict."""
+    d_inner, H, Kd, Vd = mlstm_dims(cfg)
+    y = L.apply_norm(params["norm"], x, cfg.norm_type, cfg.norm_eps)
+    u, z = torch.chunk(L.apply_dense(params["up"], y), 2, dim=-1)
+    c, new_conv = _conv_silu(u, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype),
+                             cache["conv"] if cache is not None else None)
+    B, S = x.shape[0], x.shape[1]
+
+    def block_proj(t, w):
+        # block-diagonal per-head projection: [B,S,H,Vd] x [H,Vd,out]
+        return torch.einsum("bshv,hvo->bhso", t.reshape(B, S, H, Vd), w.to(t.dtype))
+
+    q = block_proj(c, params["wq"])
+    k = block_proj(c, params["wk"])
+    v = block_proj(u, params["wv"])
+    gates = L.apply_dense(params["w_if"], c)  # [B,S,2H]
+    i_gate = gates[..., :H].transpose(1, 2)
+    f_gate = gates[..., H:].transpose(1, 2)
+
+    new_cache = None
+    if cache is None:
+        if return_cache:
+            h, (C1, n1, m1) = mlstm_chunkwise(q, k, v, i_gate, f_gate,
+                                              chunk=cfg.xlstm.chunk_size, return_state=True)
+            new_cache = {"conv": _conv_window(u, cfg.xlstm.conv_width),
+                         "C": C1, "n": n1, "m": m1}
+        else:
+            h = mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk=cfg.xlstm.chunk_size)
+    else:
+        h, (C1, n1, m1) = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], i_gate[:, :, 0],
+                                     f_gate[:, :, 0], (cache["C"], cache["n"], cache["m"]))
+        h = h[:, :, None, :]
+        new_cache = {"conv": new_conv, "C": C1, "n": n1, "m": m1}
+
+    # per-head norm in f32, then the learnable skip from the conv path
+    h32 = h.transpose(1, 2).float().reshape(B, S, H, Vd)
+    var = torch.mean(torch.square(h32), dim=-1, keepdim=True)
+    h = (h32 * torch.rsqrt(var + cfg.norm_eps)).reshape(B, S, d_inner)
+    h = h.to(x.dtype) * params["head_norm"].to(x.dtype)
+    h = h + params["skip"].to(x.dtype) * c
+    out = L.apply_dense(params["down"], h * F.silu(z))
+    return x + out, new_cache
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device):
+    """One mLSTM layer's zeroed decode cache: conv window in ``dtype``, f32
+    C, n and m = -inf."""
+    d_inner, H, Kd, Vd = mlstm_dims(cfg)
+    f32 = torch.float32
+    return {
+        "conv": torch.zeros((batch, cfg.xlstm.conv_width - 1, d_inner), dtype=dtype,
+                            device=device),
+        "C": torch.zeros((batch, H, Kd, Vd), dtype=f32, device=device),
+        "n": torch.zeros((batch, H, Kd), dtype=f32, device=device),
+        "m": torch.full((batch, H), -torch.inf, dtype=f32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block
+# ---------------------------------------------------------------------------
+
+GATES = ("z", "i", "f", "o")
+
+
+def slstm_dims(cfg: ModelConfig):
+    H = cfg.n_heads
+    return H, cfg.d_model // H
+
+
+def init_slstm_block(cfg: ModelConfig):
+    d = cfg.d_model
+    H, dh = slstm_dims(cfg)
+    d_ff = int(4 * d / 3)
+    gates = {}
+    for g in GATES:
+        gates[f"w_{g}"] = ParamSpec((d, d))
+        gates[f"r_{g}"] = ParamSpec((H, dh, dh), scale=1.0)
+        gates[f"b_{g}"] = ParamSpec((d,), init="zeros")
+    return {
+        "norm": L.init_norm(d, cfg.norm_type),
+        **gates,
+        "head_norm": ParamSpec((d,), init="ones"),
+        "ffn_norm": L.init_norm(d, cfg.norm_type),
+        "ffn": L.init_mlp(d, d_ff, "swiglu"),
+    }
+
+
+def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple):
+    """The sLSTM over time, one step at a time in f32 (the reference's
+    ``lax.scan``).  x [B,S,D]; state (h, c, n, m) each [B,H,dh] f32.
+    Returns (h [B,S,D] in x's dtype, final state)."""
+    H, dh = slstm_dims(cfg)
+    B, S, D = x.shape
+    f32 = torch.float32
+    wx = {g: L.apply_dense({"w": params[f"w_{g}"], "b": params[f"b_{g}"]}, x).reshape(B, S, H, dh)
+          for g in GATES}
+    R = {g: params[f"r_{g}"].to(f32) for g in GATES}
+    h, c, n, m = state
+    one = torch.ones((), dtype=f32, device=x.device)
+    hs = []
+    for t in range(S):
+        def rec(g):
+            return torch.einsum("bhd,hde->bhe", h, R[g])
+
+        zt = torch.tanh(wx["z"][:, t].to(f32) + rec("z"))
+        it = wx["i"][:, t].to(f32) + rec("i")
+        ft = wx["f"][:, t].to(f32) + rec("f")
+        ot = torch.sigmoid(wx["o"][:, t].to(f32) + rec("o"))
+        logf = F.logsigmoid(ft)
+        m_new = torch.maximum(logf + m, it)
+        iw = torch.exp(it - m_new)
+        fw = torch.exp(logf + m - m_new)
+        c = fw * c + iw * zt
+        n = fw * n + iw
+        # maximum, not clamp: at a tie (n is exactly 1 at the first step) both
+        # split the gradient in half, as jnp.maximum does
+        h = ot * c / torch.maximum(n, one)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype), (h, c, n, m)
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device):
+    H, dh = slstm_dims(cfg)
+    z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
+    return (z, z, z, torch.full((batch, H, dh), -torch.inf, dtype=torch.float32,
+                                device=device))
+
+
+def apply_slstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
+                      return_cache: bool = False):
+    """cache (decode): {"state": (h, c, n, m)}.  Returns (x, new cache or None)."""
+    y = L.apply_norm(params["norm"], x, cfg.norm_type, cfg.norm_eps)
+    state = cache["state"] if cache is not None else init_slstm_state(cfg, x.shape[0], x.device)
+    h, final = slstm_cell(params, cfg, y, state)
+    x = x + h * params["head_norm"].to(x.dtype)
+    y = L.apply_norm(params["ffn_norm"], x, cfg.norm_type, cfg.norm_eps)
+    x = x + L.apply_mlp(params["ffn"], y, "swiglu")
+    return x, ({"state": final} if (cache is not None or return_cache) else None)

@@ -1,8 +1,12 @@
 """Batched serving engine: prefill + lockstep decode with KV/state caches.
 
-Counterpart of ``repro/serve/engine.py`` for every ported family: the
-attention families keep a KV cache, zamba2 its SSM states, conv windows and
-the shared block's KV caches, all behind ``Model.prefill``/``decode_step``.
+Counterpart of ``repro/serve/engine.py`` for every family: the attention
+families keep a KV cache, zamba2 its SSM states, conv windows and the shared
+block's KV caches, xLSTM its mLSTM and sLSTM states, whisper a decoder
+self-cache and the cross K/V of the encoded frames, all behind
+``Model.prefill``/``decode_step``.  Whisper's frames go to ``generate``
+directly; ``BatchAccumulator`` does not pass them on (it drops a request's
+keyword arguments, as the reference's does).
 Requests are grouped into generation batches (arrival-window batching); each
 batch is prefilled once and decoded in lockstep, with per-row EOS masking.
 Left-pad tokens are attended to, as in the reference.
@@ -57,6 +61,7 @@ class ServeEngine:
         self,
         prompts: np.ndarray,                     # [B, S_prompt] int32
         max_new_tokens: int = 32,
+        frames: np.ndarray | None = None,        # encdec
         pixel_embeds: np.ndarray | None = None,  # vlm
     ) -> dict:
         """Generate for a batch of equal-length prompts."""
@@ -66,6 +71,8 @@ class ServeEngine:
         self.stats["prefill_tokens"] += int(B * S)
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long,
                                            device=self.device)}
+        if frames is not None:
+            batch["frames"] = torch.as_tensor(frames, device=self.device)
         if pixel_embeds is not None:
             batch["pixel_embeds"] = torch.as_tensor(pixel_embeds, device=self.device)
         logits, cache = self.model.prefill(self.params, batch, self.max_len)

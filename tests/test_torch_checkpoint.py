@@ -179,12 +179,13 @@ def test_save_leaves_no_tmp_directory(tmp_path):
     assert ckpt.latest_step(str(tmp_path)) == 2
 
 
-def _states():
-    """The JAX and port train states of internlm2 SMOKE after one step from the
-    same bridged weights (so m and v are not zero)."""
+def _states(arch=ARCH):
+    """The JAX and port train states of ``arch`` SMOKE (internlm2 unless
+    given) after one step from the same bridged weights (so m and v are not
+    zero)."""
     kw = dict(compute_dtype="float32")
-    jcfg = jax_configs.get(ARCH, smoke=True).replace(**kw)
-    tcfg = configs.get(ARCH, smoke=True).replace(**kw)
+    jcfg = jax_configs.get(arch, smoke=True).replace(**kw)
+    tcfg = configs.get(arch, smoke=True).replace(**kw)
     tc = dict(total_steps=10, warmup_steps=1, learning_rate=1e-3)
     j_state, _ = jax_loop.init_state(JaxModel(jcfg), jax.random.PRNGKey(0))
     t_params = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, j_state.params), tcfg,
@@ -237,3 +238,35 @@ def test_port_checkpoint_restores_into_jax(tmp_path):
     target = jax.tree_util.tree_map(jnp.zeros_like, j_state)
     restored, _ = jax_ckpt.restore(str(tmp_path), target)
     _assert_states_equal(t_state, restored)
+
+
+def test_xlstm_train_state_restores_across_packages_bitwise(tmp_path):
+    """xlstm-1.3b's TrainState (mLSTM leaves stacked twice) restores both ways
+    bit for bit, its leaves in jax.tree_util's order."""
+    j_state, t_state, tcfg = _states("xlstm-1.3b")
+    leaves = ckpt._flatten(t_state)
+    assert len(leaves) == len(jax.tree_util.tree_leaves(j_state)) == 3 * 33 + 1
+    jax_ckpt.save(str(tmp_path / "jax"), 1, j_state)
+    target = loop.init_state(Model(tcfg), torch.Generator().manual_seed(5), device="cpu")
+    restored, meta = ckpt.restore(str(tmp_path / "jax"), target)
+    assert meta["step"] == 1
+    _assert_states_equal(restored, j_state)
+    ckpt.save(str(tmp_path / "port"), 1, t_state)
+    back, _ = jax_ckpt.restore(str(tmp_path / "port"), jax.tree_util.tree_map(jnp.zeros_like,
+                                                                              j_state))
+    _assert_states_equal(t_state, back)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-medium"])
+def test_bridge_round_trips_new_families_bitwise(arch):
+    """params_from_jax / params_to_jax on the reference's own init of xlstm-1.3b
+    and whisper-medium SMOKE: every leaf back bit for bit, in order."""
+    jcfg = jax_configs.get(arch, smoke=True)
+    tcfg = configs.get(arch, smoke=True)
+    tree = jax.tree_util.tree_map(np.asarray, JaxModel(jcfg).init(jax.random.PRNGKey(3))[0])
+    back = bridge.params_to_jax(bridge.params_from_jax(tree, tcfg, device="cpu"), tcfg)
+    jleaves = jax.tree_util.tree_leaves_with_path(tree)
+    bleaves = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in jleaves] == [p for p, _ in bleaves]
+    for (_, j), (_, b) in zip(jleaves, bleaves):
+        assert b.dtype == j.dtype and b.tobytes() == j.tobytes()

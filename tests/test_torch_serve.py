@@ -25,9 +25,11 @@ from repro.serve.engine import BatchAccumulator as JaxAccumulator
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch import bridge, configs
 from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.launch import serve as serve_launcher
+from repro_torch.launch.serve import serve_via_flows
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.model import Model
+from repro_torch.models.model import PORTED_FAMILIES, Model
 from repro_torch.serve.engine import BatchAccumulator, ServeEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -191,7 +193,7 @@ def test_bridge_rejects_mismatched_trees(fault):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["internvl2-2b", "zamba2-7b", "mixtral-8x7b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "xlstm-1.3b", "whisper-medium"])
 def test_model_init_matches_jax_tree(arch):
     jcfg, tcfg = _cfgs(arch)
     jparams, _ = JaxModel(jcfg).init(jax.random.PRNGKey(0))
@@ -204,8 +206,73 @@ def test_model_init_matches_jax_tree(arch):
 
 
 def test_unported_family_raises():
+    """Every family of the reference is ported; a family it does not have
+    still raises."""
+    assert set(PORTED_FAMILIES) == {"dense", "vlm", "moe", "hybrid", "ssm", "encdec"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(configs.get("xlstm-1.3b", smoke=True))
+        Model(configs.get("xlstm-1.3b", smoke=True).replace(family="rnn"))
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_every_config_builds_forwards_prefills_and_decodes(arch):
+    """Model(cfg) for every config of the registry, at SMOKE size on the CPU:
+    init, forward, prefill and two decode steps, all finite and of the
+    reference's shapes."""
+    _, tcfg = _cfgs(arch)
+    model = Model(tcfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0), device="cpu")
+    batch = {"tokens": torch.from_numpy(_tokens(tcfg, (B, S))).long()}
+    if tcfg.family == "vlm":
+        batch["pixel_embeds"] = torch.zeros((B, tcfg.n_image_tokens, tcfg.d_model))
+    if tcfg.family == "encdec":
+        batch["frames"] = torch.ones((B, 16, tcfg.d_model))
+    logits, _ = model.forward(params, batch)
+    assert logits.shape == (B, S, tcfg.vocab_size) and bool(torch.isfinite(logits).all())
+    logits, cache = model.prefill(params, batch, S + 2)
+    for pos in (S, S + 1):
+        assert logits.shape == (B, 1, tcfg.vocab_size) and bool(torch.isfinite(logits).all())
+        logits, cache = model.decode_step(params, logits.argmax(-1), cache, pos)
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_count_params_analytic_equals_the_references(arch):
+    """The full configs' analytic parameter counts, exactly the reference's
+    (xlstm-1.3b 1.756 B and whisper-medium 0.759 B among them)."""
+    from repro.models.model import count_params_analytic as jax_count
+
+    from repro_torch.models.model import count_params_analytic
+
+    assert count_params_analytic(configs.get(arch)) == jax_count(jax_configs.get(arch))
+
+
+@pytest.mark.parametrize("argv", [["--via-flows"], ["--arch", "xlstm-1.3b"],
+                                  ["--arch", "xlstm-1.3b", "--via-flows"]])
+def test_serve_launcher_runs_to_the_end(argv, capsys):
+    """``python -m repro_torch.launch.serve --device cpu`` with the reference's
+    ``--via-flows`` and for xlstm-1.3b: all 16 requests served, and through
+    flows the run SUCCEEDED."""
+    assert serve_launcher.main([*argv, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "served [16] requests" in out if "--via-flows" in argv else "served 16 requests" in out
+    assert "'requests': 16" in out and "'tokens_generated': 256" in out
+    if "--via-flows" in argv:
+        assert ": SUCCEEDED" in out
+
+
+def test_serving_flow_succeeds_and_serves_every_request():
+    """serve_via_flows: the flow's one Compute action flushes the accumulator;
+    the run SUCCEEDED and its result counts every request, each served."""
+    _, tcfg = _cfgs("internlm2-1.8b")
+    params = Model(tcfg).init(torch.Generator("cpu").manual_seed(0), device="cpu")
+    engine = ServeEngine(Model(tcfg), params, max_len=24, device="cpu")
+    accum = BatchAccumulator(engine, max_batch=3)
+    for p in [np.arange(1, n + 1) for n in (5, 9, 3, 12, 7)]:
+        accum.submit(p)
+    run = serve_via_flows(accum, 4)
+    assert run.status == "SUCCEEDED"
+    assert run.context["served"]["details"]["results"] == [[5]]
+    assert engine.stats["requests"] == 5 and engine.stats["tokens_generated"] == 20
+    assert not accum._pending
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
@@ -260,7 +327,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert {f"src/repro_torch/{m}.py" for m in (
         "train/optimizer", "train/loop", "train/data", "train/checkpoint", "train/fabric",
         "parallel/compression", "launch/train", "core/flows_service", "core/engine",
-        "core/process_backend", "core/providers/compute")} <= names
+        "core/process_backend", "core/providers/compute", "models/xlstm",
+        "models/encdec")} <= names
     bad = [(f.relative_to(ROOT).as_posix(), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro") or name == "repro"]
     assert not bad
