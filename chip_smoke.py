@@ -73,10 +73,21 @@ Phases, each of which raises on failure (a non-zero exit):
               NodeFailure caught and restored from a checkpoint, checkpoint
               bytes and save and restore seconds); the training launcher at
               SMOKE; and a backward through each kernel route, which raises.
+11. shard   - a world of one NCCL rank and a (1, 1) ("data", "model") mesh on
+              the card (repro_torch.launch.mesh): internlm2-1.8b training at
+              full size through TrainingFabric(mesh=...) against the
+              unsharded fabric (2 steps, losses within 1e-3, step ms and
+              peak memory of both); its flash prefill on the mesh (24
+              launches a batch, per shard through local_map) against the
+              unsharded one; SMOKE zamba2-7b eval (the scan per shard) and
+              mixtral-8x7b apply_moe(use_gmm=True) (gmm per shard) against
+              their unsharded runs; and the elastic flow at 2 layers, a
+              NodeFailure caught and the state resharded onto the 1-D
+              ("data",) mesh, which must end SUCCEEDED.
 
-The last five lines of standard output are the xLSTM phase's and the
-training phase's JSON records, the kernels' JSON record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last six lines of standard output are the xLSTM, training and shard
+phases' JSON records, the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-ablation
     python3 chip_smoke.py --scan-ablation
@@ -1613,6 +1624,250 @@ def train_flow() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: shard (logical-axis sharding over DTensor, one card)
+# ---------------------------------------------------------------------------
+
+# sharded against unsharded on one card: a (1, 1) mesh runs the same local
+# products, so the two differ at most in summation order (the f32 logits
+# tolerance of the slices, relative)
+SHARD_TOL = 1e-3
+SHARD_STEPS = 2
+
+
+def _shard_fabric(cfg, mesh, ckpt_dir):
+    import torch
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.fabric import TrainingFabric
+
+    return TrainingFabric(cfg, TrainConfig(**TRAIN_SCHEDULE), batch=TRAIN_B, seq_len=TRAIN_S,
+                          ckpt_dir=str(ckpt_dir), device=torch.device("cuda", 0), mesh=mesh)
+
+
+def shard_train(mesh) -> dict:
+    """SHARD_STEPS steps of full-width, full-depth internlm2-1.8b (f32 params,
+    bf16 compute, "xla", remat "full", as phase 10) on TRAIN_B x TRAIN_S
+    batches through TrainingFabric, unsharded and then on ``mesh``, from the
+    fabric's own init on the same seed and the same batches: losses within
+    SHARD_TOL, each step's ms (DTensor's dispatch on record) and peak memory;
+    no kernel launches."""
+    import torch
+
+    from repro_torch import configs
+
+    cfg = configs.get("internlm2-1.8b")
+    out = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        t0 = time.perf_counter()
+        fabric = _shard_fabric(cfg, m, ROOT / "build" / "shard_train")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        records = []
+        for _ in range(SHARD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = fabric.train_steps(1)
+            records.append((rec["loss"], 1e3 * (time.perf_counter() - t0)))
+        launches = launch_counts()
+        placements = sorted({str(p.placements) for p in fabric.state.params["blocks"]["attn"]
+                             ["wq"].values()} if m is not None else {"plain"})
+        out[name] = {"losses": [r[0] for r in records], "step_ms": [r[1] for r in records],
+                     "init_s": init_s, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": launches, "wq_placements": placements}
+        print(f"  {name}: losses {out[name]['losses']}, step ms "
+              f"{[round(ms, 3) for ms in out[name]['step_ms']]}, init {init_s:.1f} s, peak "
+              f"memory {out[name]['peak_memory_gb']:.2f} GB, launches {launches}, wq "
+              f"placements {placements}")
+        check(launches == {"flash_attention": 0, "mamba_scan": 0, "gmm": 0},
+              f"{name} training launched {launches}")
+        del fabric
+        torch.cuda.empty_cache()
+    a, b = out["sharded"]["losses"], out["unsharded"]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    out["loss_rel"] = rel
+    print(f"  sharded vs unsharded losses: relative {rel:.3e} (tol {SHARD_TOL}); step ms "
+          f"{out['sharded']['step_ms'][-1]:.3f} vs {out['unsharded']['step_ms'][-1]:.3f} "
+          f"(the last step)")
+    check(rel <= SHARD_TOL, f"sharded losses {a} differ from unsharded {b}")
+    return out
+
+
+def shard_prefill(mesh, B: int = 8, S: int = 512) -> dict:
+    """internlm2-1.8b prefill under "flash" at full size on ``mesh``: 24 flash
+    launches a batch (per shard, through local_map), logits and caches within
+    SHARD_TOL of the unsharded flash prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import param_axes, param_shapes
+    from repro_torch.parallel import sharding as sh
+
+    model, params = big_model("internlm2-1.8b")
+    cfg = model.cfg
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": tokens}, S)  # set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_cache = model.prefill(params, {"tokens": tokens}, S)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        dparams = sh.distribute_tree(params, sh.param_shardings(
+            param_axes(cfg), mesh, sh.PARAM_RULES, param_shapes(cfg)))
+        with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+            dtokens = sh.distribute_input(tokens, "batch", "seq")
+            model.prefill(dparams, {"tokens": dtokens}, S)  # set-up
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got, cache = model.prefill(dparams, {"tokens": dtokens}, S)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            got = got.full_tensor().float()
+            rel_cache = rel_l2(cache["k"].full_tensor().float(), want_cache["k"].float())
+    rel = rel_l2(got, want.float())
+    print(f"  sharded flash prefill of {B} x {S}: {1e3 * wall:.3f} ms (unsharded "
+          f"{1e3 * plain_wall:.3f} ms), launches {launches}; "
+          f"logits vs unsharded (relative L2) {rel:.3e}, k cache {rel_cache:.3e} "
+          f"(tol {SHARD_TOL})")
+    want_launches = {"flash_attention": cfg.n_layers, "mamba_scan": 0, "gmm": 0}
+    check(launches == want_launches, f"sharded prefill launched {launches}, "
+          f"want {want_launches}")
+    check(rel <= SHARD_TOL and rel_cache <= SHARD_TOL, f"sharded prefill differs: {rel} "
+          f"{rel_cache}")
+    del model, params, dparams, cache, want_cache
+    torch.cuda.empty_cache()
+    return {"ms": 1e3 * wall, "unsharded_ms": 1e3 * plain_wall,
+            "launches": launches["flash_attention"], "logits_rel": rel,
+            "cache_rel": rel_cache}
+
+
+def shard_smoke(mesh) -> dict:
+    """SMOKE zamba2-7b eval under "flash" (the scan, per shard) and SMOKE
+    mixtral-8x7b's apply_moe(use_gmm=True) on layer 0 (gmm, experts per
+    shard), each on ``mesh`` against its unsharded run, f32, within
+    SMOKE_TOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import Model, param_axes, param_shapes
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.testing import redraw_params_
+    from repro_torch.train.loop import make_eval_step
+
+    out = {}
+    rng = np.random.default_rng(2)
+    for arch in ("zamba2-7b", "mixtral-8x7b"):
+        cfg = configs.get(arch, smoke=True).replace(compute_dtype="float32",
+                                                    attention_impl="flash")
+        model = Model(cfg)
+        params = model.init(torch.Generator("cuda").manual_seed(0), device="cuda")
+        redraw_params_(params, seed=0)
+        dparams = sh.distribute_tree(params, sh.param_shardings(
+            param_axes(cfg), mesh, sh.PARAM_RULES, param_shapes(cfg)))
+        t = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 65)), device="cuda")
+        batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        # no_grad, not inference_mode: the params are ordinary DTensors, and
+        # some DTensor versions cannot view one under inference mode
+        with torch.no_grad():
+            if arch == "zamba2-7b":
+                kernel, step = "mamba_scan", make_eval_step(model)
+                want = step(params, batch)["loss"]
+                reset_launch_counts()
+                with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+                    got = step(dparams, batch)["loss"]
+                n = launch_counts()[kernel]
+                want_n = cfg.n_layers
+            else:
+                kernel = "gmm"
+                p0 = tfm.layer_params(params["blocks"], 0)["moe"]
+                x = torch.randn(4, 64, cfg.d_model, device="cuda",
+                                generator=torch.Generator("cuda").manual_seed(3))
+                want, want_aux = moe.apply_moe(p0, cfg, x, use_gmm=True)
+                reset_launch_counts()
+                with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+                    dp0 = tfm.layer_params(dparams["blocks"], 0)["moe"]
+                    got, aux = moe.apply_moe(dp0, cfg, sh.distribute_input(
+                        x, "batch", "seq", "embed"), use_gmm=True)
+                    got, aux = got.full_tensor(), sh.full_tensor(aux)
+                n = launch_counts()[kernel]
+                want_n = 3
+                check(bool(torch.allclose(aux, want_aux, rtol=SMOKE_TOL, atol=SMOKE_TOL)),
+                      f"sharded aux {aux} vs {want_aux}")
+        err = float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+        print(f"  {arch} SMOKE on the mesh ({kernel} per shard): {n} launches (want {want_n}), "
+              f"max|err| vs unsharded {err:.3e} (tol {SMOKE_TOL})")
+        check(n == want_n, f"{arch}: {kernel} launched {n} times on the mesh, want {want_n}")
+        check(err <= SMOKE_TOL, f"{arch} sharded differs from unsharded: {err}")
+        out[kernel] = {"launches": n, "max_err": err}
+        del model, params, dparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_flow(mesh) -> dict:
+    """The elastic flow (repro_torch.launch.elastic) at full width and
+    FLOW_LAYERS layers on ``mesh``: 2 steps, a checkpoint, a NodeFailure at
+    step 3, reshard onto the 1-D ("data",) mesh (the placements change on
+    restore), 2 more steps; the run must end SUCCEEDED."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.launch.elastic import run_elastic_flow, summary
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = configs.get("internlm2-1.8b").replace(n_layers=FLOW_LAYERS)
+    workdir = ROOT / "build" / "shard_flow"
+    shutil.rmtree(workdir, ignore_errors=True)
+    fabric = _shard_fabric(cfg, mesh, workdir / "ckpt")
+    small = make_mesh((1,), ("data",))
+    before = str(fabric.state.params["embed"]["table"].placements)
+    t0 = time.perf_counter()
+    run = run_elastic_flow(fabric, small, steps_per_segment=2, fail_at=3)
+    wall = time.perf_counter() - t0
+    rec = summary(run, fabric)
+    after = str(fabric.state.params["embed"]["table"].placements)
+    print(f"  elastic flow {rec['status']} in {wall:.1f} s: caught {rec['failure']!r}, "
+          f"reshard {rec['reshard']}, final step {rec['final_step']}, embed placements "
+          f"{before} -> {after}")
+    check(rec["status"] == "SUCCEEDED", f"elastic flow {rec['status']}: {rec['error']}")
+    check(rec["reshard"].get("new_mesh") == (1,) and rec["reshard"].get("restored_step") == 2
+          and rec["final_step"] == 4 and before != after, f"elastic flow: {rec}")
+    del fabric
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"status": rec["status"], "seconds": wall, "reshard": rec["reshard"],
+            "final_step": rec["final_step"], "placements": [before, after]}
+
+
+def shard() -> dict:
+    """Phase 11: a world of one NCCL rank, a (1, 1) ("data", "model") mesh on
+    the card, and the sharded paths on it (training, flash prefill, the scan
+    and gmm per shard, the elastic flow).  Returns their records."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    init_process_group("cuda", 0, 1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        out = {"train": shard_train(mesh)}
+        out["prefill"] = shard_prefill(mesh)
+        out.update(shard_smoke(mesh))
+        out["flow"] = shard_flow(mesh)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+
 def gradient_guard() -> None:
     """A backward through any kernel route raises on the card, as on the CPU:
     Model.loss(...).backward() under attention_impl="flash" with params that
@@ -1901,6 +2156,8 @@ def main() -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     print("== gradient guard")
     gradient_guard()
+    print("== shard: DTensor on a (1, 1) mesh (NCCL, one rank)")
+    sharded = shard()
 
     kernels = [{
         "name": "flash_attention", "route": "cuda", "kernel_route": "tma_wgmma",
@@ -1908,6 +2165,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:118",
         "launches": fa_launches, "phi3_prefill_launches": phi3_launches,
         "whisper_launches": whisper_launches,
+        "shard_prefill_launches": sharded["prefill"]["launches"],
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
@@ -1918,7 +2176,8 @@ def main() -> int:
         "name": "mamba_scan", "route": "cuda", "kernel_route": ssd["kernel_route"],
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:82",
-        "launches": ms_launches, "max_abs_err": ssd["max_abs_err"],
+        "launches": ms_launches, "shard_launches": sharded["mamba_scan"]["launches"],
+        "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
         "library_ms": None, "ssd_chunked_ms": ssd["ssd_chunked_ms"],
@@ -1926,7 +2185,8 @@ def main() -> int:
         "name": "gmm", "route": "cuda", "kernel_route": gmm["kernel_route"],
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:46",
-        "launches": gmm_launches, "max_abs_err": gmm["max_abs_err"],
+        "launches": gmm_launches, "shard_launches": sharded["gmm"]["launches"],
+        "max_abs_err": gmm["max_abs_err"],
         "ms": gmm["ms"], "plain_ms": gmm["plain_ms"],
         "bound_ms": gmm["bound_ms"], "bound_by": gmm["bound_by"],
         "library_ms": gmm["library_ms"],
@@ -1935,6 +2195,7 @@ def main() -> int:
     }]
     print(json.dumps({"xlstm": xlstm_record}))
     print(json.dumps({"train": training}))
+    print(json.dumps({"shard": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

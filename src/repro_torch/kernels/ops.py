@@ -16,9 +16,23 @@ that silently carries no gradient.  Evaluation (``torch.inference_mode``) and
 serving (parameters that do not require grad) are unaffected; training runs
 the plain routes (``attention_impl="xla"``, ``ssd_chunked``, the einsum expert
 FFN), as the reference's does.
+
+Each entry point also takes DTensors (a model run under
+:class:`repro_torch.parallel.sharding.use_rules` with a mesh).  It then
+runs its own plain-tensor route on each rank's local shards through
+``local_map``: attention with the batch over the data axes and the heads
+over "model", the scan with ``ssm_heads`` over "model" (``Bm``/``Cm``
+whole on every rank), the expert FFN with the experts over "model" at
+:func:`moe_expert_mlp`'s ``[G,E,C,D]`` level, so that ``e % Ew`` indexes
+the local slabs.  No tensor is gathered whole to feed a kernel; what is
+gathered is what the local computation needs (the kv heads of a rank's
+query heads when they are not sharded with them, an expert weight's
+FSDP-sharded ``embed`` dim).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +41,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
+from repro_torch.parallel import sharding
 
 
 def _no_backward(name: str, *inputs: torch.Tensor) -> None:
@@ -38,10 +53,72 @@ def _no_backward(name: str, *inputs: torch.Tensor) -> None:
         )
 
 
+def _kv_heads_for(kl: torch.Tensor, h0: int, n_q: int, group: int) -> torch.Tensor:
+    """The kv heads that query heads ``h0 .. h0+n_q`` (of a GQA layer with
+    ``group`` query heads per kv head) read, from all the kv heads ``kl``,
+    laid out so that local query head ``h`` reads local kv head
+    ``h // (n_q / K_local)``, the kernel's pairing."""
+    if n_q % group == 0:
+        return kl[:, :, h0 // group:(h0 + n_q) // group]
+    if group % n_q == 0:
+        return kl[:, :, h0 // group:h0 // group + 1]
+    return kl.repeat_interleave(group, dim=2)[:, :, h0:h0 + n_q]
+
+
+def attention_per_shard(fn, q, k, v, *batched) -> torch.Tensor:
+    """``fn(q, k, v, *batched)`` (an attention of plain tensors, GQA q
+    ``[B,S,H,D]``, k/v ``[B,T,K,D]``) on DTensors, per rank on its batch rows
+    and query heads.  ``batched``: extra tensors whose dim 0 is the batch (a
+    1-D or plain tensor is taken whole by every rank), or None.
+
+    When the kv heads shard with the query heads (K divides by the ranks
+    along the heads), each rank's kv shard is exactly the groups of its query
+    heads.  Otherwise (``assign_spec`` left "kv_heads" replicated, e.g. 2 kv
+    heads on a model axis of 4) every rank gets all K kv heads and keeps the
+    ones its query heads read: an attention that pairs local query head ``h``
+    with local kv head ``h // (H_local / K_local)``, as the kernel does, would
+    on all K heads be right on the first rank only.  Each rank's gradient of
+    the whole k and v is then a partial sum over the ranks along the heads."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = q.device_mesh
+    qp = sharding.act_placements(q, "batch", "seq", "heads", "head_dim")
+    H, K = q.shape[2], k.shape[2]
+    index, count = sharding.local_rank_along(mesh, qp, 2)
+    bp = sharding.follow(qp, {0: 0})
+    args, places = [], []
+    for x in batched:
+        if x is not None:
+            p = bp if x.dim() > 1 else sharding.follow(qp, {})
+            if not sharding.is_dtensor(x):
+                x = distribute_tensor(x, mesh, p, src_data_rank=None)
+        args.append(x)
+        places.append(None if x is None else p)
+    kvp = sharding.follow(qp, {0: 0, 2: 2}) if K % count == 0 else bp
+    # whole kv heads, read in part: each rank's kv gradient is a partial sum
+    kv_grad = None if K % count == 0 else sharding.grad_placements(qp, {0: 0}, {2})
+
+    def local(ql, kl, vl, *rest):
+        if K % count:
+            n_q, group = ql.shape[2], H // K
+            h0 = index * n_q
+            kl = _kv_heads_for(kl, h0, n_q, group)
+            vl = _kv_heads_for(vl, h0, n_q, group)
+        return fn(ql, kl, vl, *rest)
+
+    return sharding.local_map(local, qp, (qp, kvp, kvp, *places), mesh,
+                              in_grad_placements=(None, kv_grad, kv_grad, *places))(
+        q, k, v, *args)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
                     logit_softcap: float | None = None) -> torch.Tensor:
     _no_backward("flash_attention", q, k, v)
+    if sharding.is_dtensor(q):
+        return attention_per_shard(functools.partial(
+            flash_attention, causal=causal, window=window, logit_softcap=logit_softcap),
+            q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  logit_softcap=logit_softcap)
@@ -54,6 +131,13 @@ def mamba_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     """Chunked SSD scan forward: y [B,S,H,P] in xh's dtype, no final state.
     The result does not depend on ``chunk`` beyond rounding."""
     _no_backward("mamba_scan", xh, dt, A, Bm, Cm)
+    if sharding.is_dtensor(xh):
+        xp = sharding.act_placements(xh, "batch", "seq", "ssm_heads", None)
+        dtp = sharding.follow(xp, {0: 0, 2: 2})
+        ap = sharding.follow(xp, {2: 0})
+        bp = sharding.follow(xp, {0: 0})
+        return sharding.local_map(functools.partial(mamba_scan, chunk=chunk), xp,
+                                  (xp, dtp, ap, bp, bp), xh.device_mesh)(xh, dt, A, Bm, Cm)
     if xh.device.type == "cpu":
         y, _ = ref.mamba_scan_ref(xh, dt, A, Bm, Cm)
         return y
@@ -63,6 +147,11 @@ def mamba_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped matmul [E,C,D] x [Ew,D,F] -> [E,C,F], slab ``e % Ew``."""
     _no_backward("gmm", x, w)
+    if sharding.is_dtensor(x):
+        # the local slabs line up only when x and w hold the same experts
+        # (E == Ew); otherwise both go whole to every rank
+        xp = sharding.follow(x.placements, {0: 0} if x.shape[0] == w.shape[0] else {})
+        return sharding.local_map(gmm, xp, (xp, xp), x.device_mesh)(x, w)
     if x.device.type == "cpu":
         return ref.gmm_ref(x, w)
     return _gmm.gmm(x, w)
@@ -70,6 +159,15 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def moe_expert_mlp(expert_in: torch.Tensor, experts: dict, cfg) -> torch.Tensor:
     """SwiGLU expert FFN via grouped matmuls.  expert_in [(G,)E,C,D]."""
+    if sharding.is_dtensor(expert_in):
+        axes = ("batch", "experts", "expert_capacity", "embed")[4 - expert_in.dim():]
+        xp = sharding.act_placements(expert_in, *axes)
+        e = expert_in.dim() - 3
+        wp = sharding.follow(xp, {e: 0})
+        names = ("gate", "up", "down")
+        local = lambda x, *ws: moe_expert_mlp(x, dict(zip(names, ws)), cfg)  # noqa: E731
+        return sharding.local_map(local, xp, (xp, wp, wp, wp), expert_in.device_mesh)(
+            expert_in, *(experts[n] for n in names))
     squeeze = expert_in.dim() == 3
     if squeeze:
         expert_in = expert_in[None]

@@ -13,8 +13,9 @@ applied to an ML job.
         --smoke --segments 3 --steps-per-segment 5 --simulate-failure [--device cpu]
 
 It runs on CUDA unless ``--device cpu`` is given, at the reduced (smoke)
-config unless ``--full`` is given.  Sharding over several devices waits for
-the port's ``parallel/sharding.py``.  ``main`` shuts its engine down before it
+config unless ``--full`` is given, unsharded: like the reference's parser it
+has no mesh flag (``TrainingFabric(mesh=...)`` takes one, and
+:mod:`repro_torch.launch.elastic` runs a sharded flow).  ``main`` shuts its engine down before it
 returns, so it can be called from a program that goes on.
 """
 

@@ -11,24 +11,38 @@ Counterpart of ``repro/models/attention.py``.  Two implementations:
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import distribute_input, shard, unshard_dims
 
 
 def init_attention(cfg: ModelConfig, d_model: int | None = None):
     d = d_model or cfg.d_model
     hd = cfg.resolved_head_dim
     return {
-        "wq": L.init_dense(d, cfg.n_heads * hd, cfg.use_qkv_bias),
-        "wk": L.init_dense(d, cfg.n_kv_heads * hd, cfg.use_qkv_bias),
-        "wv": L.init_dense(d, cfg.n_kv_heads * hd, cfg.use_qkv_bias),
-        "wo": L.init_dense(cfg.n_heads * hd, d, cfg.use_bias, scale=1.0),
+        "wq": L.init_dense(d, cfg.n_heads * hd, ("embed", "qkv"), cfg.use_qkv_bias),
+        "wk": L.init_dense(d, cfg.n_kv_heads * hd, ("embed", "qkv"), cfg.use_qkv_bias),
+        "wv": L.init_dense(d, cfg.n_kv_heads * hd, ("embed", "qkv"), cfg.use_qkv_bias),
+        "wo": L.init_dense(cfg.n_heads * hd, d, ("qkv", "embed"), cfg.use_bias,
+                           scale=1.0),
     }
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    """[..., n_heads * head_dim] -> [..., n_heads, head_dim].  A DTensor whose
+    last dim is split over more ranks than there are heads (2 kv heads on a
+    model axis of 4) is gathered along it first: DTensor cannot split a
+    shard below one head."""
+    if isinstance(x, DTensor):
+        ranks = 1
+        for i, p in enumerate(x.placements):
+            if p.is_shard(x.ndim - 1):
+                ranks *= x.device_mesh.size(i)
+        if n_heads % ranks:
+            x = unshard_dims(x, -1)
     return x.reshape(x.shape[:-1] + (n_heads, head_dim))
 
 
@@ -48,6 +62,19 @@ def attend_xla(
     window: int | None = None,
     logit_softcap: float | None = None,
 ) -> torch.Tensor:
+    """Softmax attention, GQA.  On DTensors it runs per rank on its batch
+    rows and heads (:func:`repro_torch.kernels.ops.attention_per_shard`): it
+    is independent across both, and DTensor's einsum would fold the sharded
+    batch and head dims into one strided dim whose redistribution plans cost
+    more than the whole product."""
+    if isinstance(q, DTensor):
+        def local(q, k, v, q_positions, kv_positions, kv_valid):
+            return attend_xla(q, k, v, causal=causal, q_positions=q_positions,
+                              kv_positions=kv_positions, kv_valid=kv_valid,
+                              window=window, logit_softcap=logit_softcap)
+
+        return kernel_ops.attention_per_shard(local, q, k, v, q_positions,
+                                              kv_positions, kv_valid)
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -91,11 +118,20 @@ def attend(cfg: ModelConfig, q, k, v, **kw) -> torch.Tensor:
 
 def init_kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, dtype, device):
     """Zeroed KV caches stacked ``[n, batch, max_len, K, D]``: one per layer of
-    a dense stack, one per application of zamba2's shared block."""
+    a dense stack, one per application of zamba2's shared block.  Under an
+    active mesh they are DTensors placed by ``("layers",) + kv_cache_axes()``."""
     shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    axes = kv_cache_axes()
+    return {name: distribute_input(torch.zeros(shape, dtype=dtype, device=device),
+                                   "layers", *axes[name]) for name in ("k", "v")}
+
+
+def kv_cache_axes():
+    """Logical axes of one layer's KV cache (the port stacks a leading layer
+    axis in front of them)."""
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+        "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
     }
 
 
@@ -115,8 +151,14 @@ def write_kv(cache: dict, k: torch.Tensor, v: torch.Tensor, cache_position: int)
     array instead.  The cache may be a view of the stacked [L, ...] cache."""
     S = k.shape[1]
     start = clamped_start(cache_position, S, cache["k"].shape[1])
-    cache["k"][:, start:start + S] = k
-    cache["v"][:, start:start + S] = v
+    for name, new in (("k", k), ("v", v)):
+        dst = cache[name]
+        if isinstance(dst, DTensor):
+            # DTensor has no sharding strategy for a slice assignment: the new
+            # rows take the cache's placements and each rank writes its shard
+            new = new.redistribute(dst.device_mesh, dst.placements).to_local()
+            dst = dst.to_local()
+        dst[:, start:start + S] = new
 
 
 def apply_attention(
@@ -139,6 +181,9 @@ def apply_attention(
     q = _split_heads(L.apply_dense(params["wq"], x), cfg.n_heads, hd)
     k = _split_heads(L.apply_dense(params["wk"], x), cfg.n_kv_heads, hd)
     v = _split_heads(L.apply_dense(params["wv"], x), cfg.n_kv_heads, hd)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     if use_rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -183,6 +228,7 @@ def apply_attention(
             window=window,
             logit_softcap=cfg.attn_logit_softcap,
         )
+    out = shard(out, "batch", "seq", "heads", "head_dim")
     return L.apply_dense(params["wo"], _merge_heads(out)), new_cache
 
 

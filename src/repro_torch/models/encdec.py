@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel.sharding import shard
 from repro_torch.models.transformer import _remat, compute_dtype, layer_params, stack_specs, unstack
 
 
@@ -57,7 +58,8 @@ def init_decoder_block(cfg: ModelConfig):
 def init_encdec(cfg: ModelConfig):
     return {
         "embed": L.init_embedding(cfg.vocab_size, cfg.d_model),
-        "pos_embed": ParamSpec((cfg.max_target_positions, cfg.d_model), scale=1.0),
+        "pos_embed": ParamSpec((cfg.max_target_positions, cfg.d_model), (None, "embed"),
+                               scale=1.0),
         "encoder": stack_specs(init_encoder_block(cfg), cfg.n_encoder_layers),
         "enc_final_norm": L.init_norm(cfg.d_model, "layernorm", True),
         "decoder": stack_specs(init_decoder_block(cfg), cfg.n_layers),
@@ -71,13 +73,15 @@ def _enc_block(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                                   causal=False, use_rope=False)
     x = x + out
     h = L.apply_norm(p["mlp_norm"], x, "layernorm", cfg.norm_eps)
-    return x + L.apply_mlp(p["mlp"], h, "gelu")
+    x = x + L.apply_mlp(p["mlp"], h, "gelu")
+    return shard(x, "batch", "seq", "embed")
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames [B, S_enc, D], the stub frontend's output -> [B, S_enc, D]."""
     x = frames.to(compute_dtype(cfg))
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    x = shard(x, "batch", "seq", "embed")
     body = _remat(lambda p, x: _enc_block(p, cfg, x), cfg)
     for p in unstack(params["encoder"], cfg.n_encoder_layers):
         x = body(p, x)
@@ -95,7 +99,8 @@ def _dec_block(p, cfg: ModelConfig, x, positions, enc_kv, self_cache=None,
     h = L.apply_norm(p["cross_norm"], x, "layernorm", cfg.norm_eps)
     x = x + attn.apply_cross_attention(p["cross_attn"], cfg, h, enc_kv)
     h = L.apply_norm(p["mlp_norm"], x, "layernorm", cfg.norm_eps)
-    return x + L.apply_mlp(p["mlp"], h, "gelu"), new_cache
+    x = x + L.apply_mlp(p["mlp"], h, "gelu")
+    return shard(x, "batch", "seq", "embed"), new_cache
 
 
 def _dec_embed(params, cfg: ModelConfig, tokens: torch.Tensor, position0: int) -> torch.Tensor:
@@ -109,7 +114,7 @@ def _dec_embed(params, cfg: ModelConfig, tokens: torch.Tensor, position0: int) -
     if S > pos.shape[0]:  # jax.lax.dynamic_slice_in_dim refuses it too
         raise ValueError(f"{S} decoder tokens exceed max_target_positions {pos.shape[0]}")
     start = attn.clamped_start(position0, S, pos.shape[0])
-    return x + pos[start:start + S][None]
+    return shard(x + pos[start:start + S][None], "batch", "seq", "embed")
 
 
 def forward_encdec(params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Tensor):

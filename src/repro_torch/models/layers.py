@@ -4,7 +4,9 @@ Counterpart of ``repro/models/layers.py``, for the layers the serving path
 uses.  Parameters are plain nested dicts of tensors with the JAX package's
 keys and layouts (a dense weight is ``[d_in, d_out]`` for ``x @ w``), so that
 weights cross between the two packages as a copy (:mod:`repro_torch.bridge`).
-Logical sharding axes are dropped; sharding is a later slice.
+Every ``init_*`` returns a tree of :class:`ParamSpec`, each carrying the
+reference's logical axes; :func:`spec_axes` reads them out for
+:mod:`repro_torch.parallel.sharding`.
 """
 
 from __future__ import annotations
@@ -15,12 +17,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import shard
+
 
 @dataclasses.dataclass
 class ParamSpec:
-    """The shape and initialiser of one parameter leaf (init-time only)."""
+    """A parameter leaf's shape, logical axes and initialiser (init-time only)."""
 
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
     init: str = "normal"  # normal | zeros | ones
     scale: float = 1.0
 
@@ -38,6 +44,16 @@ def map_tree(fn, tree):
     if isinstance(tree, dict):
         return {key: map_tree(fn, sub) for key, sub in tree.items()}
     return fn(tree)
+
+
+def spec_axes(specs):
+    """The tree of logical-axis tuples of a tree of ParamSpec."""
+    return map_tree(lambda s: s.axes, specs)
+
+
+def spec_shapes(specs):
+    """The tree of shapes of a tree of ParamSpec."""
+    return map_tree(lambda s: s.shape, specs)
 
 
 def unflatten(pairs) -> dict:
@@ -100,9 +116,9 @@ def materialize(generator: torch.Generator, specs, dtype, device):
 
 
 def init_norm(d: int, norm_type: str, use_bias: bool = False):
-    spec = {"scale": ParamSpec((d,), init="ones")}
+    spec = {"scale": ParamSpec((d,), ("embed",), init="ones")}
     if norm_type == "layernorm" and use_bias:
-        spec["bias"] = ParamSpec((d,), init="zeros")
+        spec["bias"] = ParamSpec((d,), ("embed",), init="zeros")
     return spec
 
 
@@ -126,10 +142,11 @@ def apply_norm(params, x: torch.Tensor, norm_type: str, eps: float) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
-def init_dense(d_in: int, d_out: int, use_bias: bool = False, scale: float = 1.0):
-    spec = {"w": ParamSpec((d_in, d_out), scale=scale)}
+def init_dense(d_in: int, d_out: int, axes: tuple[str | None, str | None],
+               use_bias: bool = False, scale: float = 1.0):
+    spec = {"w": ParamSpec((d_in, d_out), axes, scale=scale)}
     if use_bias:
-        spec["b"] = ParamSpec((d_out,), init="zeros")
+        spec["b"] = ParamSpec((d_out,), (axes[1],), init="zeros")
     return spec
 
 
@@ -143,11 +160,24 @@ def apply_dense(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_embedding(vocab: int, d: int):
-    return {"table": ParamSpec((vocab, d), scale=1.0)}
+    return {"table": ParamSpec((vocab, d), ("vocab", "embed"), scale=1.0)}
 
 
 def apply_embedding(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return params["table"].to(compute_dtype)[tokens]
+    table = params["table"].to(compute_dtype)
+    if not sharding.is_dtensor(table):
+        return table[tokens]
+    # DTensor's index and index_put (the lookup's backward) lack a working
+    # sharding strategy in some versions: every rank gathers the table and
+    # looks up its own tokens; its gradient of the table is a partial sum over
+    # the ranks that split the tokens
+    mesh = table.device_mesh
+    tokens = sharding.replicated(tokens, mesh)
+    dims = set(range(tokens.ndim))
+    tp = sharding.follow(tokens.placements, {d: d for d in dims})
+    grad = sharding.grad_placements(tp, {}, dims)
+    return sharding.local_map(lambda t, ids: t[ids], tp, (sharding.follow(tp, {}), tp), mesh,
+                              in_grad_placements=(grad, None))(table, tokens)
 
 
 def apply_unembed(params, x: torch.Tensor,
@@ -193,13 +223,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def init_mlp(d_model: int, d_ff: int, mlp_type: str, use_bias: bool = False):
     if mlp_type == "swiglu":
         return {
-            "gate": init_dense(d_model, d_ff, use_bias),
-            "up": init_dense(d_model, d_ff, use_bias),
-            "down": init_dense(d_ff, d_model, use_bias),
+            "gate": init_dense(d_model, d_ff, ("embed", "mlp"), use_bias),
+            "up": init_dense(d_model, d_ff, ("embed", "mlp"), use_bias),
+            "down": init_dense(d_ff, d_model, ("mlp", "embed"), use_bias),
         }
     return {
-        "up": init_dense(d_model, d_ff, use_bias),
-        "down": init_dense(d_ff, d_model, use_bias),
+        "up": init_dense(d_model, d_ff, ("embed", "mlp"), use_bias),
+        "down": init_dense(d_ff, d_model, ("mlp", "embed"), use_bias),
     }
 
 
@@ -208,6 +238,7 @@ def apply_mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         h = F.silu(apply_dense(params["gate"], x)) * apply_dense(params["up"], x)
     else:
         h = F.gelu(apply_dense(params["up"], x), approximate="tanh")
+    h = shard(h, *(("batch",) + ("seq",) * (h.ndim - 2) + ("mlp",)))
     return apply_dense(params["down"], h)
 
 
@@ -216,14 +247,32 @@ def apply_mlp(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold
+
+
+def _token_nll_per_shard(logits, labels) -> torch.Tensor:
+    """:func:`_token_nll` of DTensor logits, per rank on its positions: the
+    vocabulary is gathered whole (DTensor's gather over a vocab-sharded dim
+    leaves a masked partial that its reduction mishandles), the labels follow
+    the logits' other placements."""
+    mesh = logits.device_mesh
+    lp = sharding.follow(logits.placements, {d: d for d in range(logits.ndim - 1)})
+    return sharding.local_map(_token_nll, lp, (lp, lp), mesh)(
+        logits, sharding.replicated(labels, mesh))
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token loss in f32.  logits [..., V]; labels int [...]; the
     optional mask weights each position (the mean over its sum, at least 1)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    if sharding.is_dtensor(logits):
+        nll = _token_nll_per_shard(logits, labels)
+    else:
+        nll = _token_nll(logits, labels)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

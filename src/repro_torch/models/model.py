@@ -52,6 +52,16 @@ def init_spec(cfg: ModelConfig):
     return tfm.init_lm(cfg)
 
 
+def param_axes(cfg: ModelConfig):
+    """The params' logical axes: nested dicts of tuples, no tensor made."""
+    return L.spec_axes(init_spec(cfg))
+
+
+def param_shapes(cfg: ModelConfig):
+    """The params' shapes: nested dicts of tuples, no tensor made."""
+    return L.spec_shapes(init_spec(cfg))
+
+
 def count_params_analytic(cfg: ModelConfig) -> int:
     total = 0
     for _, spec in L.flatten_specs(init_spec(cfg)):

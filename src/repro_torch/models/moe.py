@@ -4,8 +4,12 @@ Counterpart of ``repro/models/moe.py``.  Tokens are split into groups; each
 group builds a ``[T_g, E, C]`` dispatch/combine tensor and sends tokens to the
 experts through einsums.  Capacity is rounded up to a multiple of 8; tokens
 past an expert's capacity are dropped (their combine weight is zero).  The
-reference's ``shard(...)`` annotations are no-ops without a mesh and are left
-out; sharding is a later slice (see ROADMAP.md).
+reference's ``shard(...)`` annotations are kept: under a mesh the groups go
+over the data axes and the experts over "model".  Routing (top-k, the
+cumsum over a group's tokens, the slot scatter) has no DTensor sharding
+strategy, and the dispatch and combine einsums fold sharded dims that some
+DTensor versions cannot split: both run per rank, on its own groups (and
+experts), through ``local_map``.
 
 ``use_gmm=True`` runs the expert FFN through the grouped-matmul kernel
 (:func:`repro_torch.kernels.ops.moe_expert_mlp`).  As in the reference, no
@@ -14,12 +18,16 @@ model path sets it: ``apply_block`` calls :func:`apply_moe` without it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import shard
 
 DEFAULT_GROUP_SIZE = 2048
 
@@ -28,11 +36,11 @@ def init_moe(cfg: ModelConfig):
     moe = cfg.moe
     d, f, e = cfg.d_model, moe.d_ff, moe.n_experts
     return {
-        "router": {"w": ParamSpec((d, e), scale=1.0)},
+        "router": {"w": ParamSpec((d, e), ("embed", "experts"), scale=1.0)},
         "experts": {
-            "gate": ParamSpec((e, d, f)),
-            "up": ParamSpec((e, d, f)),
-            "down": ParamSpec((e, f, d)),
+            "gate": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
+            "up": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
+            "down": ParamSpec((e, f, d), ("experts", "mlp", "embed")),
         },
     }
 
@@ -93,6 +101,22 @@ def top_k_dispatch(logits: torch.Tensor, cfg: ModelConfig, capacity: int):
     return dispatch, combine, aux
 
 
+def _route(logits: torch.Tensor, cfg: ModelConfig, capacity: int):
+    """:func:`top_k_dispatch`; a DTensor's groups are routed on the rank that
+    holds them.  Its other dims are gathered first, the groups keep their
+    placement (sharded where the groups are, as the "batch" annotation put
+    them), and the aux loss, a mean over groups, is the average of the
+    ranks' means (``Partial("avg")`` over the mesh dims sharding the groups)."""
+    if not sharding.is_dtensor(logits):
+        return top_k_dispatch(logits, cfg, capacity)
+    from torch.distributed.tensor import Partial
+
+    groups = sharding.follow(logits.placements, {0: 0})
+    aux = tuple(Partial("avg") if p.is_shard() else p for p in groups)
+    return sharding.local_map(lambda lg: top_k_dispatch(lg, cfg, capacity),
+                              (groups, groups, aux), (groups,), logits.device_mesh)(logits)
+
+
 def apply_moe(
     params,
     cfg: ModelConfig,
@@ -106,21 +130,57 @@ def apply_moe(
     groups = group_tokens(T, group_size)
     tg = T // groups
     xg = x.reshape(groups, tg, D)
+    xg = shard(xg, "batch", None, "embed")
 
     logits = xg.float() @ params["router"]["w"].float()  # [G,T,E]
     capacity = capacity_for(tg, cfg)
-    dispatch, combine, aux = top_k_dispatch(logits, cfg, capacity)
-    expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
+    dispatch, combine, aux = _route(logits, cfg, capacity)
+    dispatch_t = shard(dispatch.to(x.dtype), "batch", None, "experts", None)
+
+    experts = [params["experts"][name] for name in ("gate", "up", "down")]
+    combine = combine.to(x.dtype)
+    if sharding.is_dtensor(xg):
+        out = _experts_per_shard(cfg, use_gmm, xg, dispatch_t, combine, *experts)
+    else:
+        out = _experts(cfg, use_gmm, xg, dispatch_t, combine, *experts)
+    return out.reshape(B, S, D), aux
+
+
+def _experts(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, w_gate, w_up, w_down):
+    """Dispatch, the expert FFN and the weighted combine: [G,T,D] -> [G,T,D]."""
+    # dispatch einsum -> [G, E, C, D]; E sharded over "model" => all-to-all
+    expert_in = torch.einsum("gtec,gtd->gecd", dispatch_t, xg)
+    expert_in = shard(expert_in, "batch", "experts", "expert_capacity", "embed")
 
     if use_gmm:
-        expert_out = kernel_ops.moe_expert_mlp(expert_in, params["experts"], cfg)
+        weights = {"gate": w_gate, "up": w_up, "down": w_down}
+        expert_out = kernel_ops.moe_expert_mlp(expert_in, weights, cfg)
     else:
-        w_gate = params["experts"]["gate"].to(x.dtype)
-        w_up = params["experts"]["up"].to(x.dtype)
-        w_down = params["experts"]["down"].to(x.dtype)
+        w_gate, w_up, w_down = (w.to(xg.dtype) for w in (w_gate, w_up, w_down))
         h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, w_gate))
         h = h * torch.einsum("gecd,edf->gecf", expert_in, w_up)
+        h = shard(h, "batch", "experts", "expert_capacity", "mlp")
         expert_out = torch.einsum("gecf,efd->gecd", h, w_down)
+    expert_out = shard(expert_out, "batch", "experts", None, "embed")
 
-    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), expert_out)
-    return out.reshape(B, S, D), aux
+    return torch.einsum("gtec,gecd->gtd", combine, expert_out)
+
+
+def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, *weights):
+    """:func:`_experts` of DTensors, per rank on its groups and experts (the
+    placements the "batch" and "experts" annotations give), the expert
+    weights gathered along their FSDP-sharded dims.  Each rank's output is
+    its experts' share of the combine, a partial sum over the ranks along the
+    experts; xg's gradient is one there too, and the weights' over the ranks
+    along the groups.  DTensor's einsums would fold sharded dims into one
+    that some versions cannot split."""
+    dp = sharding.act_placements(dispatch_t, "batch", None, "experts", None)
+    xp = sharding.follow(dp, {0: 0})
+    wp = sharding.follow(dp, {2: 0})
+    x_grad = sharding.grad_placements(dp, {0: 0}, {2})
+    w_grad = sharding.grad_placements(dp, {2: 0}, {0})
+    out = x_grad  # the output is laid out as xg's gradient is
+    return sharding.local_map(functools.partial(_experts, cfg, use_gmm), out,
+                              (xp, dp, dp, wp, wp, wp), xg.device_mesh,
+                              in_grad_placements=(x_grad, None, None, w_grad, w_grad, w_grad))(
+        xg, dispatch_t, combine, *weights)

@@ -1,7 +1,6 @@
 """Mamba2 (SSD) block, the hybrid arch's (zamba2) sequence mixer.
 
-Counterpart of ``repro/models/ssm.py`` (without ``mamba_cache_axes``:
-sharding is a later slice).  The sequence is cut into chunks: the
+Counterpart of ``repro/models/ssm.py``.  The sequence is cut into chunks: the
 intra-chunk terms are dense products and only the per-chunk state summary is
 carried sequentially (:func:`ssd_chunked`).  Under ``attention_impl="flash"``
 the forward pass sends the scan to the hand-written CUDA kernel through
@@ -22,6 +21,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import shard
 
 
 def dims(cfg: ModelConfig):
@@ -38,14 +39,14 @@ def init_mamba(cfg: ModelConfig):
     conv_ch = d_inner + 2 * G * N
     proj_out = 2 * d_inner + 2 * G * N + H  # z, x, B, C, dt
     return {
-        "in_proj": {"w": ParamSpec((d, proj_out))},
-        "conv_w": ParamSpec((ssm.conv_width, conv_ch)),
-        "conv_b": ParamSpec((conv_ch,), init="zeros"),
-        "A_log": ParamSpec((H,), init="ones"),
-        "D": ParamSpec((H,), init="ones"),
-        "dt_bias": ParamSpec((H,), init="zeros"),
-        "norm_scale": ParamSpec((d_inner,), init="ones"),
-        "out_proj": {"w": ParamSpec((d_inner, d))},
+        "in_proj": {"w": ParamSpec((d, proj_out), ("embed", "ssm_inner"))},
+        "conv_w": ParamSpec((ssm.conv_width, conv_ch), ("conv", "ssm_inner")),
+        "conv_b": ParamSpec((conv_ch,), ("ssm_inner",), init="zeros"),
+        "A_log": ParamSpec((H,), ("ssm_heads",), init="ones"),
+        "D": ParamSpec((H,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamSpec((H,), ("ssm_heads",), init="zeros"),
+        "norm_scale": ParamSpec((d_inner,), ("ssm_inner",), init="ones"),
+        "out_proj": {"w": ParamSpec((d_inner, d), ("ssm_inner", "embed"))},
     }
 
 
@@ -56,7 +57,17 @@ def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over seq.  x [B,S,Ch]; w [W,Ch]."""
+    """Depthwise causal conv over seq.  x [B,S,Ch]; w [W,Ch].  On DTensors it
+    runs per rank on its batch rows (the sequence and channels whole): some
+    DTensor versions fail to plan the pad's redistribution.  Each rank's
+    gradient of w and b is then a partial sum over the ranks that split the
+    batch."""
+    if sharding.is_dtensor(x):
+        xp = sharding.follow(x.placements, {0: 0})
+        whole = sharding.follow(xp, {})
+        grad = sharding.grad_placements(xp, {}, {0})
+        return sharding.local_map(_causal_conv, xp, (xp, whole, whole), x.device_mesh,
+                                  in_grad_placements=(None, grad, grad))(x, w, b)
     W = w.shape[0]
     pad = F.pad(x, (0, 0, W - 1, 0))
     out = torch.zeros_like(x)
@@ -76,7 +87,11 @@ def ssd_chunked(
     return_final_state: bool = False,
 ):
     """Chunkwise SSD, padded to a whole number of chunks.  Returns y [B,S,H,P]
-    in xh's dtype (and the final state [B,H,P,N] f32 if requested)."""
+    in xh's dtype (and the final state [B,H,P,N] f32 if requested).  On
+    DTensors it runs per rank on its batch rows and heads
+    (:func:`_ssd_per_shard`)."""
+    if sharding.is_dtensor(xh):
+        return _ssd_per_shard(xh, dt, A, Bm, Cm, chunk, h0, return_final_state)
     Bsz, S, H, P = xh.shape
     N = Bm.shape[-1]
     if S % chunk:
@@ -129,6 +144,34 @@ def ssd_chunked(
     return y
 
 
+def _ssd_per_shard(xh, dt, A, Bm, Cm, chunk, h0, return_final_state):
+    """:func:`ssd_chunked` of DTensors on each rank's batch rows and heads
+    (``ssm_heads`` over "model"): independent across both, and DTensor's
+    einsums would fold sharded dims into one that some versions cannot
+    split.  Bm and Cm, shared by the heads, are whole on every rank along the
+    heads, so their gradients are partial sums there; A's is one along the
+    batch."""
+    xp = sharding.act_placements(xh, "batch", "seq", "ssm_heads", None)
+    hp = sharding.follow(xp, {0: 0, 2: 1})
+    ins = [xp, sharding.follow(xp, {0: 0, 2: 2}), sharding.follow(xp, {2: 0}),
+           sharding.follow(xp, {0: 0}), sharding.follow(xp, {0: 0})]
+    grads = [None, None, sharding.grad_placements(xp, {2: 0}, {0}),
+             sharding.grad_placements(xp, {0: 0}, {2}), sharding.grad_placements(xp, {0: 0}, {2})]
+    args = [xh, dt, A, Bm, Cm]
+    if h0 is not None:
+        ins.append(hp)
+        grads.append(None)
+        args.append(h0)
+
+    def local(xh, dt, A, Bm, Cm, h0=None):
+        return ssd_chunked(xh, dt, A, Bm, Cm, chunk=chunk, h0=h0,
+                           return_final_state=return_final_state)
+
+    out = (xp, hp) if return_final_state else xp
+    return sharding.local_map(local, out, tuple(ins), xh.device_mesh,
+                              in_grad_placements=tuple(grads))(*args)
+
+
 def _conv_window(conv_in: torch.Tensor, width: int) -> torch.Tensor:
     """Last (width-1) conv inputs, left-padded: the decode conv cache."""
     S = conv_in.shape[1]
@@ -172,6 +215,7 @@ def apply_mamba(
     dt = F.softplus(dt.float() + params["dt_bias"].float())  # [B,S,H] f32
     A = -torch.exp(params["A_log"].float())                   # [H] f32
     xh = xs.reshape(xs.shape[0], xs.shape[1], H, P)
+    xh = shard(xh, "batch", "seq", "ssm_heads", None)
 
     if cache is None:
         if return_cache:
@@ -212,4 +256,11 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):
         "h": torch.zeros((batch, H, P, N), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.ssm.conv_width - 1, conv_ch), dtype=dtype,
                             device=device),
+    }
+
+
+def mamba_cache_axes():
+    return {
+        "h": ("batch", "ssm_heads", None, None),
+        "conv": ("batch", None, "ssm_inner"),
     }

@@ -23,11 +23,14 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel.sharding import shard
 
 
-def stack_specs(spec, n: int):
-    """Prepend a stacking dimension to every ParamSpec in a tree."""
-    return L.map_tree(lambda s: ParamSpec((n,) + s.shape, s.init, s.scale), spec)
+def stack_specs(spec, n: int, axis_name: str = "layers"):
+    """Prepend a stacking dimension, logical axis ``axis_name``, to every
+    ParamSpec in a tree."""
+    return L.map_tree(
+        lambda s: ParamSpec((n,) + s.shape, (axis_name,) + s.axes, s.init, s.scale), spec)
 
 
 def layer_params(stacked, i: int):
@@ -129,6 +132,7 @@ def apply_block(
         h = L.apply_norm(params["mlp_norm"], x, cfg.norm_type, cfg.norm_eps)
         ffn_out, aux = _ffn(params, cfg, h)
         x = x + ffn_out
+    x = shard(x, "batch", "seq", "embed")
     return x, new_cache, aux
 
 
@@ -143,7 +147,7 @@ def init_lm_shell(cfg: ModelConfig):
         "final_norm": L.init_norm(cfg.d_model, cfg.norm_type, cfg.use_bias),
     }
     if not cfg.tie_embeddings:
-        spec["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab_size))}
+        spec["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))}
     return spec
 
 
@@ -154,7 +158,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens, pixel_embeds=None):
         # n_image_tokens positions (InternVL-style prefix)
         k = pixel_embeds.shape[1]
         x = torch.cat([pixel_embeds.to(x.dtype), x[:, k:, :]], dim=1)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def lm_logits(params, cfg: ModelConfig, x):
@@ -162,7 +166,7 @@ def lm_logits(params, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         return L.apply_unembed(params["embed"], x, cfg.attn_logit_softcap)
     # the full-vocab product stays a plain matmul, as the reference leaves it to XLA
-    return L.apply_dense(params["lm_head"], x)
+    return shard(L.apply_dense(params["lm_head"], x), "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -259,10 +263,11 @@ def init_lora(cfg: ModelConfig, n_apps: int):
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     return {
-        "qkv_a": ParamSpec((n_apps, d, r)),
-        "qkv_b": ParamSpec((n_apps, r, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd), init="zeros"),
-        "mlp_a": ParamSpec((n_apps, d, r)),
-        "mlp_b": ParamSpec((n_apps, r, cfg.d_ff), init="zeros"),
+        "qkv_a": ParamSpec((n_apps, d, r), ("blocks", "embed", "rank")),
+        "qkv_b": ParamSpec((n_apps, r, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+                           ("blocks", "rank", "qkv"), init="zeros"),
+        "mlp_a": ParamSpec((n_apps, d, r), ("blocks", "embed", "rank")),
+        "mlp_b": ParamSpec((n_apps, r, cfg.d_ff), ("blocks", "rank", "mlp"), init="zeros"),
     }
 
 
@@ -275,9 +280,9 @@ def init_zamba(cfg: ModelConfig):
         "mamba": ssm_mod.init_mamba(cfg),
     }
     spec = init_lm_shell(cfg)
-    spec["groups"] = stack_specs(stack_specs(mamba_spec, period), n_groups)
+    spec["groups"] = stack_specs(stack_specs(mamba_spec, period, "layers"), n_groups, "blocks")
     if tail:
-        spec["tail"] = stack_specs(mamba_spec, tail)
+        spec["tail"] = stack_specs(mamba_spec, tail, "layers")
     spec["shared"] = init_shared_block(cfg)
     spec["lora"] = init_lora(cfg, n_groups)
     return spec
@@ -306,9 +311,9 @@ def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
     dq, dk, dv = torch.split(delta, [nq, nk, nk], dim=-1)
     ap = shared["attn"]
     B, S = h.shape[0], h.shape[1]
-    q = (L.apply_dense(ap["wq"], h) + dq).reshape(B, S, cfg.n_heads, hd)
-    k = (L.apply_dense(ap["wk"], h) + dk).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (L.apply_dense(ap["wv"], h) + dv).reshape(B, S, cfg.n_kv_heads, hd)
+    q = attn._split_heads(L.apply_dense(ap["wq"], h) + dq, cfg.n_heads, hd)
+    k = attn._split_heads(L.apply_dense(ap["wk"], h) + dk, cfg.n_kv_heads, hd)
+    v = attn._split_heads(L.apply_dense(ap["wv"], h) + dv, cfg.n_kv_heads, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
@@ -441,8 +446,9 @@ def init_xlstm(cfg: ModelConfig):
     n_super, n_m = xlstm_structure(cfg)
     spec = init_lm_shell(cfg)
     spec["super"] = {
-        "mlstm": stack_specs(stack_specs(xlstm_mod.init_mlstm_block(cfg), n_m), n_super),
-        "slstm": stack_specs(xlstm_mod.init_slstm_block(cfg), n_super),
+        "mlstm": stack_specs(stack_specs(xlstm_mod.init_mlstm_block(cfg), n_m, "layers"),
+                             n_super, "blocks"),
+        "slstm": stack_specs(xlstm_mod.init_slstm_block(cfg), n_super, "blocks"),
     }
     return spec
 

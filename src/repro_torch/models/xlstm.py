@@ -1,8 +1,7 @@
 """xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM (scalar
 memory, strictly recurrent), per arXiv:2405.04517.
 
-Counterpart of ``repro/models/xlstm.py`` (without the cache-axes functions:
-sharding is a later slice).  It is plain PyTorch, as the reference is plain
+Counterpart of ``repro/models/xlstm.py``.  It is plain PyTorch, as the reference is plain
 JAX: no kernel of its own.  The mLSTM's parallel form is computed chunkwise:
 the O(Q^2) intra-chunk part is dense products, and the (C, n, m) state is
 carried across chunks by a loop (the reference's ``lax.scan``).  Exponential
@@ -28,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel.sharding import shard
 from repro_torch.models.ssm import _causal_conv, _conv_window
 
 # ---------------------------------------------------------------------------
@@ -183,16 +183,17 @@ def init_mlstm_block(cfg: ModelConfig):
     # weights instead of d_inner^2, which keeps xlstm-1.3b at 1.3 B
     return {
         "norm": L.init_norm(d, cfg.norm_type),
-        "up": {"w": ParamSpec((d, 2 * d_inner))},
-        "conv_w": ParamSpec((x.conv_width, d_inner)),
-        "conv_b": ParamSpec((d_inner,), init="zeros"),
-        "wq": ParamSpec((H, Vd, Kd)),
-        "wk": ParamSpec((H, Vd, Kd)),
-        "wv": ParamSpec((H, Vd, Vd)),
-        "w_if": {"w": ParamSpec((d_inner, 2 * H)), "b": ParamSpec((2 * H,), init="zeros")},
-        "head_norm": ParamSpec((d_inner,), init="ones"),
-        "skip": ParamSpec((d_inner,), init="ones"),
-        "down": {"w": ParamSpec((d_inner, d))},
+        "up": {"w": ParamSpec((d, 2 * d_inner), ("embed", "lstm_inner"))},
+        "conv_w": ParamSpec((x.conv_width, d_inner), ("conv", "lstm_inner")),
+        "conv_b": ParamSpec((d_inner,), ("lstm_inner",), init="zeros"),
+        "wq": ParamSpec((H, Vd, Kd), ("lstm_heads", None, None)),
+        "wk": ParamSpec((H, Vd, Kd), ("lstm_heads", None, None)),
+        "wv": ParamSpec((H, Vd, Vd), ("lstm_heads", None, None)),
+        "w_if": {"w": ParamSpec((d_inner, 2 * H), ("lstm_inner", None)),
+                 "b": ParamSpec((2 * H,), (None,), init="zeros")},
+        "head_norm": ParamSpec((d_inner,), ("lstm_inner",), init="ones"),
+        "skip": ParamSpec((d_inner,), ("lstm_inner",), init="ones"),
+        "down": {"w": ParamSpec((d_inner, d), ("lstm_inner", "embed"))},
     }
 
 
@@ -225,6 +226,9 @@ def apply_mlstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     q = block_proj(c, params["wq"])
     k = block_proj(c, params["wk"])
     v = block_proj(u, params["wv"])
+    q = shard(q, "batch", "lstm_heads", "seq", None)
+    k = shard(k, "batch", "lstm_heads", "seq", None)
+    v = shard(v, "batch", "lstm_heads", "seq", None)
     gates = L.apply_dense(params["w_if"], c)  # [B,S,2H]
     i_gate = gates[..., :H].transpose(1, 2)
     f_gate = gates[..., H:].transpose(1, 2)
@@ -275,6 +279,15 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device):
 GATES = ("z", "i", "f", "o")
 
 
+def mlstm_cache_axes():
+    return {
+        "conv": ("batch", None, "lstm_inner"),
+        "C": ("batch", "lstm_heads", None, None),
+        "n": ("batch", "lstm_heads", None),
+        "m": ("batch", "lstm_heads"),
+    }
+
+
 def slstm_dims(cfg: ModelConfig):
     H = cfg.n_heads
     return H, cfg.d_model // H
@@ -286,13 +299,13 @@ def init_slstm_block(cfg: ModelConfig):
     d_ff = int(4 * d / 3)
     gates = {}
     for g in GATES:
-        gates[f"w_{g}"] = ParamSpec((d, d))
-        gates[f"r_{g}"] = ParamSpec((H, dh, dh), scale=1.0)
-        gates[f"b_{g}"] = ParamSpec((d,), init="zeros")
+        gates[f"w_{g}"] = ParamSpec((d, d), ("embed", "lstm_inner"))
+        gates[f"r_{g}"] = ParamSpec((H, dh, dh), ("lstm_heads", None, None), scale=1.0)
+        gates[f"b_{g}"] = ParamSpec((d,), ("lstm_inner",), init="zeros")
     return {
         "norm": L.init_norm(d, cfg.norm_type),
         **gates,
-        "head_norm": ParamSpec((d,), init="ones"),
+        "head_norm": ParamSpec((d,), ("lstm_inner",), init="ones"),
         "ffn_norm": L.init_norm(d, cfg.norm_type),
         "ffn": L.init_mlp(d, d_ff, "swiglu"),
     }
@@ -338,6 +351,11 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device):
     z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
     return (z, z, z, torch.full((batch, H, dh), -torch.inf, dtype=torch.float32,
                                 device=device))
+
+
+def slstm_state_axes():
+    a = ("batch", "lstm_heads", None)
+    return (a, a, a, a)
 
 
 def apply_slstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,

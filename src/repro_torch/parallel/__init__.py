@@ -1,1 +1,2 @@
-"""Parallelism helpers of the port (only gradient compression so far)."""
+"""Parallelism of the port: logical-axis sharding over DTensor and gradient
+compression."""

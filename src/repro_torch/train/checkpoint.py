@@ -17,6 +17,15 @@ mid-save never leaves a half-written latest checkpoint.  Restore reads the
 leaves into the target's structure, checks their count and shapes, and puts
 each on the target leaf's device in its dtype.  bf16 leaves, which numpy has
 no type for, are written as f32 (exact) and cast back on restore.
+
+Sharded state (DTensor leaves): a save gathers every DTensor leaf whole
+(``full_tensor``, a collective over its mesh) on the calling thread, so that
+every rank issues its collectives from one thread in one order; only the
+gathered host arrays go to :class:`AsyncCheckpointer`'s worker thread.  The
+mesh's first rank writes, and the others wait at a barrier over the mesh
+(after a synchronous write, or in :meth:`AsyncCheckpointer.wait`).  The file
+format is the same.  ``restore(..., shardings=)`` places each leaf straight
+onto a mesh, which may differ from the one the checkpoint was saved from.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.parallel import sharding
 
 
 def _flatten(tree) -> list:
@@ -70,9 +81,51 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
+def _mesh_of(leaves):
+    """The mesh of the first DTensor among ``leaves`` (None if there is none)."""
+    for leaf in leaves:
+        if sharding.is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
+
+
+def _gather(tree):
+    """(host copy of ``tree``, the mesh its DTensor leaves live on or None):
+    each DTensor leaf gathered whole first, on the calling thread."""
+    leaves = _flatten(tree)
+    host = [_to_host(sharding.full_tensor(leaf)) for leaf in leaves]
+    return _unflatten(tree, iter(host)), _mesh_of(leaves)
+
+
+def _is_writer(mesh) -> bool:
+    return mesh is None or int(mesh.mesh.flatten()[0]) == torch.distributed.get_rank()
+
+
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits until all have arrived: a barrier along
+    each mesh dim in turn, which holds every rank until all have entered
+    the first."""
+    if mesh is None:
+        return
+    for dim in range(mesh.ndim):
+        if mesh.size(dim) > 1:
+            torch.distributed.barrier(group=mesh.get_group(dim))
+
+
 def save(ckpt_dir: str, step: int, tree, extra_metadata: dict | None = None) -> str:
-    """Synchronous checkpoint write.  Returns the checkpoint path."""
+    """Synchronous checkpoint write.  Returns the checkpoint path.  With
+    DTensor leaves every rank of their mesh calls it: the leaves are
+    gathered, the first rank writes, all return after the write."""
+    tree, mesh = _gather(tree)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _is_writer(mesh):
+        _write(final, step, tree, extra_metadata)
+    _barrier(mesh)
+    return final
+
+
+def _write(final: str, step: int, tree, extra_metadata: dict | None) -> None:
+    """Writes the host tree ``tree`` as checkpoint directory ``final``."""
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -95,7 +148,6 @@ def save(ckpt_dir: str, step: int, tree, extra_metadata: dict | None = None) -> 
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
-    return final
 
 
 class AsyncCheckpointer:
@@ -105,6 +157,7 @@ class AsyncCheckpointer:
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._mesh = None
         self._error: Exception | None = None
         self.last_path: str | None = None
 
@@ -112,11 +165,16 @@ class AsyncCheckpointer:
         self.wait()
         # snapshot to host before returning: the caller may go on to replace
         # or overwrite the device tensors while the write runs
-        host_tree = _unflatten(tree, iter([_to_host(leaf) for leaf in _flatten(tree)]))
+        host_tree, self._mesh = _gather(tree)
+        final = os.path.join(self.ckpt_dir, f"step_{step:08d}")
+        if not _is_writer(self._mesh):
+            self.last_path = final
+            return
 
         def work():
             try:
-                self.last_path = save(self.ckpt_dir, step, host_tree, extra_metadata)
+                _write(final, step, host_tree, extra_metadata)
+                self.last_path = final
                 self._gc()
             except Exception as e:  # surfaced at the next wait()
                 self._error = e
@@ -125,9 +183,15 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """Returns once the last save is on disk (on every rank of a sharded
+        save's mesh: the writer joins its thread, then all meet at the
+        barrier, on the calling thread)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            _barrier(mesh)
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -156,10 +220,17 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, target_tree, step: int | None = None):
+def restore(ckpt_dir: str, target_tree, step: int | None = None, shardings=None):
     """Restore into the structure of ``target_tree`` (the latest step unless
     ``step`` is given).  Returns (tree, metadata).  Each leaf lands on its
-    target leaf's device in its dtype; a numpy target leaf gets a numpy array."""
+    target leaf's device in its dtype; a numpy target leaf gets a numpy array.
+
+    ``shardings`` (optional, ``target_tree``'s structure with a
+    :class:`repro_torch.parallel.sharding.Sharding` or None at each leaf)
+    places each leaf straight onto that mesh: every rank reads the file and
+    keeps its slice, nothing is sent.  Restoring a checkpoint saved on a
+    (2, 2) mesh onto (1, 2), or onto no mesh, is just another ``shardings``;
+    the target's leaves give only shapes and dtypes."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -173,15 +244,36 @@ def restore(ckpt_dir: str, target_tree, step: int | None = None):
             f"checkpoint has {meta['n_leaves']} leaves; target expects "
             f"{len(leaves)} — architecture mismatch"
         )
+    places = _flatten_shardings(target_tree, shardings)
     restored = []
-    for i, leaf in enumerate(leaves):
+    for i, (leaf, place) in enumerate(zip(leaves, places)):
         arr = np.load(os.path.join(path, meta["index"][i]["file"]))
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(
                 f"leaf {i}: checkpoint shape {arr.shape} != target {tuple(leaf.shape)}"
             )
-        if isinstance(leaf, torch.Tensor):
+        if place is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            full = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+            restored.append(distribute_tensor(full, place.mesh, place.placements,
+                                              src_data_rank=None))
+        elif isinstance(leaf, torch.Tensor):
             restored.append(torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype))
         else:
             restored.append(arr.astype(leaf.dtype))
     return _unflatten(target_tree, iter(restored)), meta
+
+
+def _flatten_shardings(target_tree, shardings) -> list:
+    """The leaves of ``shardings`` in ``target_tree``'s leaf order (a
+    :class:`Sharding` is a leaf there, not a tuple to descend into)."""
+    if shardings is None or isinstance(shardings, sharding.Sharding):
+        return [shardings] * len(_flatten(target_tree))
+    if isinstance(target_tree, dict):
+        return [x for key in sorted(target_tree)
+                for x in _flatten_shardings(target_tree[key], shardings[key])]
+    if isinstance(target_tree, (list, tuple)):
+        return [x for t, sh in zip(target_tree, shardings)
+                for x in _flatten_shardings(t, sh)]
+    return [shardings]

@@ -9,8 +9,18 @@ and a data source on one device and exposes exactly such functions
 provider of the port's control plane (:mod:`repro_torch.core`).  Fault
 tolerance: ``inject_failure_at`` makes a training action raise
 :class:`repro_torch.core.errors.NodeFailure` at a chosen step; flows catch it
-and route to a restore state.  The reference's ``mesh`` argument and
-``reshard`` (elastic rescaling over a device mesh) wait for sharding.
+and route to a restore state.
+
+``mesh`` (a ``DeviceMesh`` with the reference's axis names, see
+:mod:`repro_torch.launch.mesh`): params, m and v are DTensors placed by
+``param_shardings(param_axes, mesh, PARAM_RULES, param_shapes=)``, the step
+stays a plain tensor equal on every rank (replicated), and the train step runs
+under ``use_rules(PARAM_RULES, ACT_RULES, mesh)``.  Every rank of the mesh
+builds the same fabric and calls the same functions in the same order (SPMD).
+``reshard(mesh)`` is the elastic rescale: it restores the latest checkpoint
+onto the new mesh's placements.  A rank outside the new mesh drops its state
+and reports ``member: False``; the mesh itself must have been built by every
+rank of the world (:func:`repro_torch.launch.mesh.make_mesh`).
 """
 
 from __future__ import annotations
@@ -23,10 +33,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.errors import NodeFailure
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, param_axes, param_shapes
+from repro_torch.parallel.sharding import (
+    ACT_RULES,
+    PARAM_RULES,
+    distribute_tree,
+    param_shardings,
+    use_rules,
+)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import SyntheticTokens
 from repro_torch.train.loop import TrainState, init_state, make_eval_step, make_train_step
+from repro_torch.train.optimizer import AdamWState, init_adamw
 
 
 class TrainingFabric:
@@ -40,16 +58,20 @@ class TrainingFabric:
         data=None,
         seed: int = 0,
         device=None,
+        mesh=None,
     ):
-        """``device``: where the state lives and the steps run (default CUDA).
-        The params are drawn from ``train_cfg.seed``, the synthetic data (when
-        no ``data`` is given) from ``seed``."""
+        """``device``: where the state lives and the steps run (default CUDA;
+        under a CUDA mesh, the rank's current CUDA device).  The params are
+        drawn from ``train_cfg.seed``, the same on every rank, the synthetic
+        data (when no ``data`` is given) from ``seed``."""
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.batch = batch
         self.seq_len = seq_len
         self.ckpt_dir = ckpt_dir
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.axes, self.shapes = param_axes(model_cfg), param_shapes(model_cfg)
         self.data = data or SyntheticTokens(model_cfg.vocab_size, batch, seq_len, seed=seed)
         self.model = Model(model_cfg)
         self.state: TrainState | None = None
@@ -59,12 +81,38 @@ class TrainingFabric:
         self._build()
 
     # ------------------------------------------------------------- plumbing
+    def _shardings(self):
+        """(params' shardings, the state's: m and v follow the params, the
+        step is left plain), or (None, None) without a mesh."""
+        if self.mesh is None:
+            return None, None
+        p_sh = param_shardings(self.axes, self.mesh, PARAM_RULES, param_shapes=self.shapes)
+        return p_sh, TrainState(params=p_sh, opt=AdamWState(step=None, m=p_sh, v=p_sh))
+
     def _build(self):
         if self.state is None:
             gen = torch.Generator(self.device).manual_seed(self.train_cfg.seed)
-            self.state = init_state(self.model, gen, self.device)
-        self._train_step = make_train_step(self.model, self.train_cfg)
-        self._eval_step = make_eval_step(self.model)
+            if self.mesh is None:
+                self.state = init_state(self.model, gen, self.device)
+            else:
+                # placed before the moments are made, which then follow them
+                params = distribute_tree(self.model.init(gen, self.device),
+                                         self._shardings()[0])
+                self.state = TrainState(params, init_adamw(params))
+        grad_sh = self._shardings()[0]
+        train_step = make_train_step(self.model, self.train_cfg, grad_shardings=grad_sh)
+        eval_step = make_eval_step(self.model)
+        if self.mesh is not None:
+            mesh = self.mesh
+
+            def in_rules(fn):
+                def wrapped(*args):
+                    with use_rules(PARAM_RULES, ACT_RULES, mesh):
+                        return fn(*args)
+                return wrapped
+
+            train_step, eval_step = in_rules(train_step), in_rules(eval_step)
+        self._train_step, self._eval_step = train_step, eval_step
         self._data_iter = iter(self.data)
 
     def _to_device(self, batch: dict) -> dict:
@@ -105,15 +153,27 @@ class TrainingFabric:
         return {"checkpoint": path, "step": step}
 
     def restore_latest(self, **_) -> dict:
+        """The latest checkpoint, each leaf placed straight onto the mesh's
+        placements (or plain without a mesh)."""
         self.checkpointer.wait()
-        self.state, meta = ckpt.restore(self.ckpt_dir, self.state)
+        self.state, meta = ckpt.restore(self.ckpt_dir, self.state,
+                                        shardings=self._shardings()[1])
         return {"restored_step": meta["step"]}
 
     def reshard(self, mesh, **_) -> dict:
-        raise NotImplementedError(
-            "reshard needs a device mesh and sharded state; the port has no "
-            "parallel/sharding.py yet (ROADMAP.md)"
-        )
+        """Elastic rescale: rebuild the step for ``mesh`` (or None) and restore
+        the latest checkpoint onto it.  Returns the old and new mesh shapes,
+        the restored step and whether this rank is in the new mesh; a rank
+        that is not drops its state (its flow should end there)."""
+        self.checkpointer.wait()
+        old = tuple(self.mesh.shape) if self.mesh is not None else None
+        new = tuple(mesh.shape) if mesh is not None else None
+        self.mesh = mesh
+        if mesh is not None and mesh.get_coordinate() is None:
+            self.state = None
+            return {"old_mesh": old, "new_mesh": new, "member": False}
+        self._build()
+        return {"old_mesh": old, "new_mesh": new, "member": True, **self.restore_latest()}
 
     def export_metrics(self, **_) -> dict:
         return {"history": self.history[-20:], "step": int(self.state.step)}

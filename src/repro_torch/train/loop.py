@@ -11,8 +11,16 @@ batch is split along its first axis and the gradients are summed in f32 and
 divided by the count, as the reference's ``lax.scan`` does.  The optimizer
 updates the state's params, m and v in place
 (:func:`repro_torch.train.optimizer.adamw_update`); a caller that needs the
-state before the step keeps a copy (a checkpoint, or ``clone``).  The
-reference's ``grad_shardings`` comes with sharding (ROADMAP.md).
+state before the step keeps a copy (a checkpoint, or ``clone``).
+
+Sharded training: the params (and so m and v) are DTensors placed by
+:func:`repro_torch.parallel.sharding.param_shardings`, and the step is called
+under ``use_rules(PARAM_RULES, ACT_RULES, mesh)``
+(:class:`repro_torch.train.fabric.TrainingFabric` does both).  Each
+microbatch, split from the plain batch, enters the mesh by its "batch" axis
+(:func:`repro_torch.parallel.sharding.distribute_input`); the gradients are
+redistributed to ``grad_shardings`` (else to their params' placements) right
+after the backward.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
+from repro_torch.parallel import sharding
 from repro_torch.parallel.compression import grads_in_bf16
 from repro_torch.train import optimizer as opt
 
@@ -39,8 +48,11 @@ class TrainState(NamedTuple):
 
 def init_state(model: Model, generator: torch.Generator, device=None) -> TrainState:
     """Params from ``model.init(generator, device)`` and a zeroed AdamW state.
-    (The reference also returns the params' logical sharding axes, which the
-    port does not have yet.)"""
+
+    The reference returns ``(state, axes)``; this returns the state alone, and
+    the params' logical axes come from
+    :func:`repro_torch.models.model.param_axes` (``param_axes(model.cfg)``),
+    which builds them without making a tensor."""
     params = model.init(generator, device=device)
     return TrainState(params=params, opt=opt.init_adamw(params))
 
@@ -54,22 +66,47 @@ def _split_microbatches(batch: dict, n: int) -> dict:
     return {key: split(x) for key, x in batch.items()}
 
 
-def make_train_step(model: Model, tcfg: TrainConfig):
+def _place_grads(grads, params, grad_shardings):
+    """Each DTensor gradient redistributed to its leaf of ``grad_shardings``
+    (a tree of ``(mesh, placements)``), or without one to its param's
+    placements, which the in-place optimizer needs."""
+    def place(g, p, sh):
+        if not sharding.is_dtensor(g):
+            return g
+        mesh, target = sh if sh is not None else (p.device_mesh, tuple(p.placements))
+        return g if tuple(g.placements) == tuple(target) else g.redistribute(mesh, target)
+
+    shs = grad_shardings if grad_shardings is not None else L.map_tree(lambda _: None, params)
+    return L.unflatten((path, place(g, p, sh)) for (path, g), (_, p), (_, sh) in zip(
+        L.flatten_specs(grads), L.flatten_specs(params), L.flatten_specs(shs)))
+
+
+def make_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``,
-    the metrics 0-dim f32 tensors on the params' device; the state passed in
-    is updated in place and returned with its new step."""
+    the metrics 0-dim f32 tensors on the params' device (whole on every rank
+    under a mesh); the state passed in is updated in place and returned with
+    its new step.
+
+    ``grad_shardings`` (a tree of :class:`repro_torch.parallel.sharding.Sharding`
+    matching the params): the placements the gradients are redistributed to
+    right after the backward, the reference's ``with_sharding_constraint``
+    on them (a reduce-scatter where the backward left a partial sum)."""
 
     def grad_fn(params, mb):
+        mb = {k: sharding.distribute_input(v, "batch", *(None,) * (v.dim() - 1))
+              for k, v in mb.items()}
         if tcfg.grad_compression == "bf16":
-            return grads_in_bf16(model.loss, params, mb)
-        return L.value_and_grad(model.loss, params, mb)
+            loss, grads = grads_in_bf16(model.loss, params, mb)
+        else:
+            loss, grads = L.value_and_grad(model.loss, params, mb)
+        return loss, _place_grads(grads, params, grad_shardings)
 
     def train_step(state: TrainState, batch: dict):
         if tcfg.microbatches > 1:
             mbs = _split_microbatches(batch, tcfg.microbatches)
             loss_sum = torch.zeros((), dtype=torch.float32, device=state.step.device)
-            grads = L.map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                     device=p.device), state.params)
+            grads = L.map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                               state.params)
             for i in range(tcfg.microbatches):
                 loss, mb_grads = grad_fn(state.params, {k: v[i] for k, v in mbs.items()})
                 for (_, acc), (_, g) in zip(L.flatten_specs(grads),
@@ -83,16 +120,23 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             loss, grads = grad_fn(state.params, batch)
 
         params, opt_state, metrics = opt.adamw_update(state.params, grads, state.opt, tcfg)
-        return TrainState(params, opt_state), {"loss": loss.float(), **metrics}
+        return TrainState(params, opt_state), {"loss": sharding.full_tensor(loss).float(),
+                                               **metrics}
 
     return train_step
 
 
 def make_eval_step(model: Model):
-    """``eval_step(params, batch) -> {"loss": f32 scalar}``, run without autograd."""
+    """``eval_step(params, batch) -> {"loss": f32 scalar}``, run without autograd:
+    under ``torch.inference_mode``, or under ``torch.no_grad`` for DTensor
+    params (some DTensor versions cannot take a view of an ordinary DTensor
+    under inference mode)."""
 
-    @torch.inference_mode()
     def eval_step(params, batch):
-        return {"loss": model.loss(params, batch).float()}
+        sharded = sharding.is_dtensor(next(L.flatten_specs(params))[1])
+        with torch.no_grad() if sharded else torch.inference_mode():
+            batch = {k: sharding.distribute_input(v, "batch", *(None,) * (v.dim() - 1))
+                     for k, v in batch.items()}
+            return {"loss": sharding.full_tensor(model.loss(params, batch)).float()}
 
     return eval_step

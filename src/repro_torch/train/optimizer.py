@@ -8,6 +8,12 @@ at internlm2-1.8b a second copy of params, m and v would take 22.7 GB more of
 the card.  Each leaf's arithmetic is the reference's, op for op, through
 temporaries of that leaf's size.  The learning rate is a tensor computed from
 the step tensor on the params' device, so a step needs no host sync.
+
+The leaves may be DTensors (sharded training): m and v then take their
+params' placements, the gradients must come in those placements too
+(:func:`repro_torch.train.loop.make_train_step` puts them there), and the
+global norm, a sum over every rank's shards, is reduced before it scales
+anything.  The step stays a plain tensor, the same on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding
 
 
 class AdamWState(NamedTuple):
@@ -50,7 +57,11 @@ def cosine_schedule(cfg: TrainConfig):
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for _, x in L.flatten_specs(tree)))
+    """The l2 norm over every leaf, a plain tensor: a DTensor leaf's sum of
+    squares is a partial sum over its shards, reduced before the root."""
+    total = sum(sharding.full_tensor(torch.sum(torch.square(x.float())))
+                for _, x in L.flatten_specs(tree))
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -77,16 +88,17 @@ def adamw_update(params, grads, state: AdamWState, cfg: TrainConfig):
     bc2 = 1 - b2 ** step.float()
 
     leaves = [list(L.flatten_specs(t)) for t in (params, grads, state.m, state.v)]
-    for (_, p), (_, g), (_, m), (_, v) in zip(*leaves):
-        g32 = (g.float() * scale).to(g.dtype).float()
-        m_new = b1 * m + (1 - b1) * g32
-        v_new = b2 * v + (1 - b2) * torch.square(g32)
-        m_hat = m_new / bc1
-        v_hat = v_new / bc2
-        delta = m_hat / (torch.sqrt(v_hat) + cfg.eps)
-        p32 = p.float()
-        # decoupled weight decay inside the lr product, as the reference has it
-        p.copy_(p32 - lr * (delta + cfg.weight_decay * p32))
-        m.copy_(m_new)
-        v.copy_(v_new)
+    with sharding.implicit_replication():  # the scalars meet DTensor leaves
+        for (_, p), (_, g), (_, m), (_, v) in zip(*leaves):
+            g32 = (g.float() * scale).to(g.dtype).float()
+            m_new = b1 * m + (1 - b1) * g32
+            v_new = b2 * v + (1 - b2) * torch.square(g32)
+            m_hat = m_new / bc1
+            v_hat = v_new / bc2
+            delta = m_hat / (torch.sqrt(v_hat) + cfg.eps)
+            p32 = p.float()
+            # decoupled weight decay inside the lr product, as the reference has it
+            p.copy_(p32 - lr * (delta + cfg.weight_decay * p32))
+            m.copy_(m_new)
+            v.copy_(v_new)
     return params, AdamWState(step, state.m, state.v), {"grad_norm": grad_norm, "lr": lr}

@@ -1,0 +1,358 @@
+"""Sharded training and serving of the port over gloo, on the CPU.
+
+Each test spawns its ranks (four unless it says otherwise), which meet
+through a ``FileStore`` in the test's ``tmp_path`` (so no port is shared
+under xdist), run one SPMD worker of this module and pickle its result.  A
+test fails with the ranks' output when they exit non-zero or outrun its join
+timeout (``TIMEOUT``, killed then), so none can hang the suite.  The
+reference for each check is the single-process port (whose own tests hold it
+to the JAX package):
+
+* 2 training steps of SMOKE internlm2, mixtral and zamba2 through
+  ``TrainingFabric(mesh=(2, 2))`` against the unsharded fabric on the same
+  weights and batches: the loss at rtol = atol = 1e-5, the updated params at
+  atol 2 lr(step 0) + rtol 1e-4 (after one Adam step the sign of a near-zero
+  gradient is a whole +-lr, as in ``tests/test_torch_train.py``);
+* the gradients' placements after the step's redistribution equal the
+  params' (``grad_shardings``);
+* prefill under ``"flash"`` on a (1, 4) mesh, where SMOKE internlm2's 2 kv
+  heads do not divide the model axis and stay whole on every rank, against
+  unsharded prefill, and one decode step after it; the kernels' entry points
+  (``mamba_scan``, ``moe_expert_mlp``, ``gmm``) on DTensors against whole
+  tensors;
+* a checkpoint saved (asynchronously) on (2, 2), restored onto (1, 2) and
+  onto no mesh, bit-equal;
+* ``python -m repro_torch.launch.elastic --device cpu`` ending SUCCEEDED at
+  step 10 or more on the ranks that stay.
+"""
+
+import json
+import os
+import pickle
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+dist = pytest.importorskip("torch.distributed")
+
+import torch.multiprocessing as mp  # noqa: E402
+
+TIMEOUT = 120  # seconds, each multi-process test's join timeout
+WORLD = 4
+LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+ARCHS = ("internlm2-1.8b", "mixtral-8x7b", "zamba2-7b")
+
+
+# --- the harness --------------------------------------------------------------
+
+
+def _rank_main(worker, rank, world, init_method, tmp, kwargs):
+    log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_process_group
+
+    init_process_group("cpu", rank, world, init_method)
+    try:
+        out = worker(rank, tmp, **kwargs)
+        with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _logs(tmp) -> str:
+    out = []
+    for rank in range(WORLD):
+        path = os.path.join(tmp, f"rank{rank}.log")
+        if os.path.exists(path):
+            with open(path) as fh:
+                out.append(f"--- rank {rank} ---\n" + fh.read()[-4000:])
+    return "\n".join(out)
+
+
+def run_ranks(tmp_path, worker, timeout=TIMEOUT, **kwargs) -> list:
+    """Each rank's return value of ``worker(rank, tmp, **kwargs)``, in rank order."""
+    tmp = str(tmp_path)
+    ctx = mp.get_context("spawn")
+    init_method = "file://" + os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(worker, rank, WORLD, init_method, tmp, kwargs))
+             for rank in range(WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.kill()
+            p.join()
+        pytest.fail(f"ranks still running after {timeout} s\n{_logs(tmp)}")
+    if any(p.exitcode != 0 for p in procs):
+        pytest.fail(f"exit codes {[p.exitcode for p in procs]}\n{_logs(tmp)}")
+    results = []
+    for rank in range(WORLD):
+        with open(os.path.join(tmp, f"out{rank}.pkl"), "rb") as fh:
+            results.append(pickle.load(fh))
+    return results
+
+
+# --- workers (run in the ranks; import nothing of JAX) ------------------------
+
+
+def _train_cfg():
+    from repro_torch.configs.base import TrainConfig
+
+    return TrainConfig(total_steps=10, warmup_steps=2, learning_rate=1e-3)
+
+
+def _fabric(arch, tmp, mesh, name):
+    from repro_torch import configs
+    from repro_torch.train.fabric import TrainingFabric
+
+    cfg = configs.get(arch, smoke=True).replace(compute_dtype="float32")
+    return TrainingFabric(cfg, _train_cfg(), batch=4, seq_len=16,
+                          ckpt_dir=os.path.join(tmp, name), device="cpu", mesh=mesh)
+
+
+def _train_worker(rank, tmp, arch, shape=(2, 2)):
+    """2 steps on ``shape`` from redrawn weights; rank 0 also runs them unsharded."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.testing import redraw_params_
+    from repro_torch.train import loop
+    from repro_torch.train.loop import TrainState
+    from repro_torch.train.optimizer import init_adamw
+
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    plain = _fabric(arch, tmp, None, f"plain{rank}")
+    redraw_params_(plain.state.params, 7)
+    full = L.map_tree(torch.clone, plain.state.params)
+    fabric = _fabric(arch, tmp, mesh, "sharded")
+    p_sh = fabric._shardings()[0]
+    params = sh.distribute_tree(full, p_sh)
+    fabric.state = TrainState(params, init_adamw(params))
+
+    # the gradients' placements: as the backward leaves them, then as the
+    # step puts them (grad_shardings = the params')
+    batch = {k: torch.as_tensor(v) for k, v in fabric.data.batch_at(0).items()}
+    with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+        mb = {k: sh.distribute_input(v, "batch", None) for k, v in batch.items()}
+        _, grads = L.value_and_grad(fabric.model.loss, params, mb)
+        placed = loop._place_grads(grads, params, p_sh)
+    flat = lambda t: [x for _, x in L.flatten_specs(t)]  # noqa: E731
+    grad_placements_match = all(
+        isinstance(g, DTensor) and g.placements == p.placements == s.placements
+        for g, p, s in zip(flat(placed), flat(params), flat(p_sh)))
+    raw_differ = sum(g.placements != p.placements for g, p in zip(flat(grads), flat(params)))
+
+    records = [fabric.train_steps(1) for _ in range(2)]
+    got = [x.full_tensor().numpy() for x in flat(fabric.state.params)]
+    out = {"losses": [r["loss"] for r in records],
+           "grad_norms": [r["grad_norm"] for r in records],
+           "m_placements_match": all(m.placements == p.placements for m, p in
+                                     zip(flat(fabric.state.opt.m), flat(fabric.state.params))),
+           "grad_placements_match": grad_placements_match, "raw_differ": raw_differ,
+           "n_leaves": len(got)}
+    if rank == 0:
+        want_records = [plain.train_steps(1) for _ in range(2)]
+        want = [x.numpy() for x in flat(plain.state.params)]
+        lr0 = float(_train_cfg().learning_rate) / 2  # lr(step 0) = lr * 1 / warmup
+        out.update(
+            want_losses=[r["loss"] for r in want_records],
+            want_grad_norms=[r["grad_norm"] for r in want_records],
+            param_excess=max(float(np.max(np.abs(g - w) - (2 * lr0 + 1e-4 * np.abs(w))))
+                             for g, w in zip(got, want)))
+    return out
+
+
+def _prefill_worker(rank, tmp):
+    """Flash prefill and one decode step of SMOKE internlm2 on (1, 4)."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model, param_axes, param_shapes
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.testing import redraw_params_
+
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    cfg = configs.get("internlm2-1.8b", smoke=True).replace(
+        compute_dtype="float32", attention_impl="flash")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    redraw_params_(params, 3)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+    kv_spec = sh.assign_spec(("batch", "kv_seq", "kv_heads", "head_dim"),
+                             (2, 24, cfg.n_kv_heads, cfg.resolved_head_dim),
+                             sh.ACT_RULES, sh.mesh_axis_sizes(mesh))
+    with torch.inference_mode():
+        want, cache = model.prefill(params, {"tokens": tokens}, 24)
+        want_dec, _ = model.decode_step(params, nxt, cache, 16)
+        dparams = sh.distribute_tree(params, sh.param_shardings(
+            param_axes(cfg), mesh, sh.PARAM_RULES, param_shapes(cfg)))
+        with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+            got, dcache = model.prefill(dparams, {"tokens": sh.distribute_input(
+                tokens, "batch", "seq")}, 24)
+            got_k = dcache["k"].full_tensor()
+            dec, _ = model.decode_step(dparams, sh.distribute_input(nxt, "batch", "seq"),
+                                       dcache, 16)
+            got, dec = got.full_tensor(), dec.full_tensor()
+        entry = _entry_points_on(mesh)
+    return {"heads": (cfg.n_heads, cfg.n_kv_heads), "kv_spec": kv_spec, "entry": entry,
+            "logits": float((got - want).abs().max()),
+            "scale": float(want.abs().max()),
+            "cache": float((got_k - cache["k"]).abs().max()),
+            "decode": float((dec - want_dec).abs().max())}
+
+
+def _entry_points_on(mesh) -> dict:
+    """The kernels' entry points on DTensors (each runs its plain route per
+    shard here) against the same calls on whole tensors: max |difference|."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import sharding as sh
+
+    gen = torch.Generator().manual_seed(5)
+    r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    xh, dt, Bm, Cm = r(2, 16, 8, 4), torch.rand(2, 16, 8, generator=gen), r(2, 16, 6), r(2, 16, 6)
+    A = -torch.rand(8, generator=gen)
+    x, w = r(1, 8, 8, 16), {"gate": r(8, 16, 12), "up": r(8, 16, 12), "down": r(8, 12, 16)}
+    out = {}
+    with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+        d = lambda t, *axes: sh.distribute_input(t, *axes)  # noqa: E731
+        got = ops.mamba_scan(d(xh, "batch", "seq", "ssm_heads", None), d(dt, "batch", "seq", None),
+                             d(A, None), d(Bm, "batch", "seq", None), d(Cm, "batch", "seq", None), 8)
+        out["mamba_scan"] = float((got.full_tensor() - ops.mamba_scan(xh, dt, A, Bm, Cm, 8)).abs().max())
+        dw = {k: d(v, None, None, None) for k, v in w.items()}
+        got = ops.moe_expert_mlp(d(x, "batch", "experts", None, None), dw, None)
+        out["moe_expert_mlp"] = float((got.full_tensor() - ops.moe_expert_mlp(x, w, None)).abs().max())
+        got = ops.gmm(d(x[0], "experts", None, None), dw["gate"])
+        out["gmm"] = float((got.full_tensor() - ops.gmm(x[0], w["gate"])).abs().max())
+    return out
+
+
+def _checkpoint_worker(rank, tmp):
+    """Save on (2, 2) (async), restore onto (1, 2) and onto no mesh."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.checkpoint import _flatten
+
+    big = make_mesh((2, 2), ("data", "model"), "cpu")
+    small = make_mesh((1, 2), ("data", "model"), "cpu")
+    fabric = _fabric("internlm2-1.8b", tmp, big, "ckpt")
+    fabric.train_steps(1)
+    saved = [x.full_tensor().numpy().copy() if hasattr(x, "full_tensor") else x.numpy().copy()
+             for x in _flatten(fabric.state)]
+    step = int(fabric.state.step)
+    fabric.save_checkpoint(synchronous=False)
+    result = fabric.reshard(small)
+    out = {"reshard": result, "step": step}
+    if result["member"]:
+        leaves = _flatten(fabric.state)
+        out["small_bit_equal"] = all(
+            np.array_equal(x.full_tensor().numpy() if hasattr(x, "full_tensor") else x.numpy(), s)
+            for x, s in zip(leaves, saved))
+        out["small_placements"] = [str(x.placements) for x in leaves if hasattr(x, "placements")][:3]
+        out["shards_are_local"] = all(x.to_local().numel() * 2 >= x.numel()
+                                      for x in leaves if hasattr(x, "to_local"))
+        # a plain target (no mesh): the same state on one rank
+        plain = _fabric("internlm2-1.8b", tmp, None, f"plain{rank}")
+        state, meta = ckpt.restore(fabric.ckpt_dir, plain.state)
+        out["plain_bit_equal"] = all(np.array_equal(x.numpy(), s)
+                                     for x, s in zip(_flatten(state), saved))
+        out["plain_is_plain"] = not any(hasattr(x, "placements") for x in _flatten(state))
+        out["meta_step"] = meta["step"]
+        out["n_params"] = len(list(L.flatten_specs(state.params)))
+    return out
+
+
+# --- tests --------------------------------------------------------------------
+
+_TRAIN: dict = {}
+
+
+def _trained(arch, tmp_path, shape=(2, 2)):
+    if (arch, shape) not in _TRAIN:
+        _TRAIN[arch, shape] = run_ranks(tmp_path, _train_worker, arch=arch, shape=shape)
+    return _TRAIN[arch, shape]
+
+
+@pytest.mark.parametrize("arch,shape", [(arch, (2, 2)) for arch in ARCHS]
+                         + [("internlm2-1.8b", (1, 4))],
+                         ids=[f"{arch}-2x2" for arch in ARCHS] + ["internlm2-1.8b-1x4"])
+def test_sharded_training_matches_single_process(arch, shape, tmp_path):
+    """(1, 4) puts SMOKE internlm2's 2 kv heads on a model axis of 4: they
+    stay whole on every rank, and their gradient is a partial sum."""
+    results = _trained(arch, tmp_path, shape)
+    lead = results[0]
+    np.testing.assert_allclose(lead["losses"], lead["want_losses"], **LOSS_TOL)
+    np.testing.assert_allclose(lead["grad_norms"], lead["want_grad_norms"], rtol=1e-4)
+    assert lead["param_excess"] <= 0.0, lead["param_excess"]
+    for r in results[1:]:  # every rank reports the same metrics
+        assert r["losses"] == lead["losses"] and r["grad_norms"] == lead["grad_norms"]
+    assert all(r["m_placements_match"] for r in results)
+
+
+def test_grad_shardings_match_param_placements(tmp_path):
+    results = _trained("internlm2-1.8b", tmp_path)
+    assert all(r["grad_placements_match"] for r in results)
+    # the redistribution does something: some raw gradients arrive elsewhere
+    assert results[0]["raw_differ"] > 0
+
+
+def test_flash_prefill_gqa_replicated_kv_matches_unsharded(tmp_path):
+    results = run_ranks(tmp_path, _prefill_worker)
+    for r in results:
+        assert r["heads"] == (4, 2)
+        assert r["kv_spec"] == ("data",)  # 2 kv heads on a model axis of 4: whole on every rank
+        assert r["logits"] <= 1e-5 * max(1.0, r["scale"]), r
+        assert r["cache"] <= 1e-5, r
+        assert r["decode"] <= 1e-5 * max(1.0, r["scale"]), r
+        assert max(r["entry"].values()) <= 1e-5, r["entry"]
+
+
+def test_checkpoint_restores_onto_a_smaller_mesh_and_no_mesh(tmp_path):
+    results = run_ranks(tmp_path, _checkpoint_worker)
+    for rank, r in enumerate(results):
+        assert r["reshard"]["old_mesh"] == (2, 2) and r["reshard"]["new_mesh"] == (1, 2)
+        assert r["reshard"]["member"] == (rank < 2)
+    for r in results[:2]:
+        assert r["reshard"]["restored_step"] == r["step"] == r["meta_step"] == 1
+        assert r["small_bit_equal"] and r["plain_bit_equal"] and r["plain_is_plain"]
+        assert r["shards_are_local"]
+
+
+def test_elastic_flow_shrinks_and_succeeds(tmp_path):
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(["src", os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.elastic", "--device", "cpu",
+         "--workdir", str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        pytest.fail(f"elastic launcher still running after {TIMEOUT} s\n{out[-6000:]}")
+    assert proc.returncode == 0, out[-6000:]
+    ranks = [json.loads(line) for line in out.splitlines() if line.startswith('{"rank"')]
+    assert [r["rank"] for r in ranks] == [0, 1, 2, 3]
+    for r in ranks:
+        assert r["status"] == "SUCCEEDED"
+        assert r["failure"] == "simulated device loss at step 6"
+        assert r["reshard"]["old_mesh"] == [2, 2] and r["reshard"]["new_mesh"] == [1, 2]
+    assert [r["reshard"]["member"] for r in ranks] == [True, True, False, False]
+    assert all(r["final_step"] >= 10 and r["reshard"]["restored_step"] == 5 for r in ranks[:2])

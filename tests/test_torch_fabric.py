@@ -162,8 +162,11 @@ def test_fabric_functions(tmp_path):
     assert int(fab.state.step) == 1
     assert fab.export_metrics()["step"] == 1 and len(fab.export_metrics()["history"]) == 2
     assert fab.evaluate(n_batches=1)["eval_loss"] > 0
-    with pytest.raises(NotImplementedError, match="sharding"):
-        fab.reshard(None)
+    # reshard without a mesh rebuilds the step and restores the latest checkpoint
+    fab.train_steps(n_steps=1)
+    assert fab.reshard(None) == {"old_mesh": None, "new_mesh": None, "member": True,
+                                 "restored_step": 1}
+    assert int(fab.state.step) == 1 and fab.train_steps(n_steps=1)["step"] == 2
 
 
 def test_fabric_needs_cuda_unless_asked_for_the_cpu(tmp_path):

@@ -128,8 +128,8 @@ def test_init_specs_match_reference_shapes():
 
 def test_materialize_truncated_normal_statistics():
     gen = torch.Generator("cpu").manual_seed(0)
-    params = L.materialize(gen, {"w": L.ParamSpec((400, 300), scale=2.0),
-                                 "s": L.ParamSpec((300,), init="ones")},
+    params = L.materialize(gen, {"w": L.ParamSpec((400, 300), ("embed", "mlp"), scale=2.0),
+                                 "s": L.ParamSpec((300,), ("mlp",), init="ones")},
                            torch.float32, "cpu")
     w = params["w"]
     std = 2.0 / np.sqrt(400)
