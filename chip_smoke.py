@@ -84,10 +84,18 @@ Phases, each of which raises on failure (a non-zero exit):
               their unsharded runs; and the elastic flow at 2 layers, a
               NodeFailure caught and the state resharded onto the 1-D
               ("data",) mesh, which must end SUCCEEDED.
+12. dryrun  - repro_torch.launch.dryrun on fake worlds of 256 and 512 ranks
+              (the production meshes on "cuda", fake tensors, no allocation,
+              no kernel launch): internlm2-1.8b train_4k, mixtral-8x7b
+              prefill_32k, zamba2-7b long_500k on the 512-rank mesh and
+              internlm2-1.8b prefill_32k through the flash kernel's custom op
+              (one traced call a layer) must end ok, each with its roofline
+              row; then phase 10's step traced on a (1, 1) world, whose
+              compute term may not exceed phase 10's measured median step.
 
-The last six lines of standard output are the xLSTM, training and shard
-phases' JSON records, the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last seven lines of standard output are the xLSTM, training, shard and
+dry-run phases' JSON records, the kernels' JSON record, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --flash-ablation
     python3 chip_smoke.py --scan-ablation
@@ -649,14 +657,15 @@ KERNEL_GROUPS = {"cuBLAS GEMMs": ("nvjet", "gemm", "cutlass", "xmma"),
                  "casts and copies": ("copy_kernel",)}
 
 
-def _kernel_time(trace: Path, top: int = 6, groups: dict | None = None) -> str:
+def _kernel_time(trace: Path, top: int = 6, groups: dict | None = None) -> tuple[str, float]:
     """Device time by kernel from a chrome trace: the busy share of the traced
     window (union of kernel intervals over first start to last end), the
-    largest kernels by total time, and the total of each of ``groups``."""
+    largest kernels by total time, and the total of each of ``groups``; and
+    the busy time in ms."""
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") == "kernel" and "dur" in e]
     if not events:
-        return "no device kernels in the trace"
+        return "no device kernels in the trace", 0.0
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
     busy, cur_start, cur_end = 0.0, *spans[0]
     for start, end in spans[1:]:
@@ -683,10 +692,12 @@ def _kernel_time(trace: Path, top: int = 6, groups: dict | None = None) -> str:
             n = sum(e["name"] == name for e in events)
             lines.append(f"    port kernel {name[:60]}: {dur / 1e3:.3f} ms in {n} launches "
                          f"({100 * dur / total:.1f} % of kernel time)")
-    return "\n".join(lines)
+    return "\n".join(lines), busy / 1e3
 
 
-def _profile(name: str, fn, top: int = 6, groups: dict | None = None) -> None:
+def _profile(name: str, fn, top: int = 6, groups: dict | None = None) -> float:
+    """Traces ``fn`` with torch.profiler, prints where its device time goes
+    and returns the device's busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -697,7 +708,9 @@ def _profile(name: str, fn, top: int = 6, groups: dict | None = None) -> None:
     trace = ROOT / "build" / f"trace_{name.split()[0]}.json"
     trace.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    print(f"  profile {name}: {_kernel_time(trace, top, groups)}")
+    text, busy_ms = _kernel_time(trace, top, groups)
+    print(f"  profile {name}: {text}")
+    return busy_ms
 
 
 def profile_serving(model, params, tokens, max_len: int, steps: int = 8) -> None:
@@ -1515,8 +1528,15 @@ def train() -> dict:
         out[f"peak_memory_gb_remat_{policy}"] = torch.cuda.max_memory_allocated() / 1e9
         print(f"  one step with remat {policy!r}: {ms:.3f} ms, peak memory "
               f"{out[f'peak_memory_gb_remat_{policy}']:.2f} GB")
-    _profile("train step (1 step, remat full)", lambda: step_fn(state, batches[0]), top=10,
-             groups=KERNEL_GROUPS)
+    out["profiled_step_busy_ms"] = _profile("train step (1 step, remat full)",
+                                            lambda: step_fn(state, batches[0]), top=10,
+                                            groups=KERNEL_GROUPS)
+    # the FLOPs of one real step, for phase 12 to hold its traced count against
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        step_fn(state, batches[0])
+    out["counted_step_flops"] = counter.get_total_flops()
     del state, params, batches
     torch.cuda.empty_cache()
     return out
@@ -1867,6 +1887,101 @@ def shard() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dry-run on the production meshes
+# ---------------------------------------------------------------------------
+
+# (arch, shape, mesh, cfg_override): a training cell on 256 ranks, an MoE
+# prefill, the long-context decode whose cache shards its sequence over the
+# 512-rank mesh's ("pod", "data"), and a prefill traced through the flash
+# kernel's custom op
+DRYRUN_CELLS = (
+    ("internlm2-1.8b", "train_4k", "single", None),
+    ("mixtral-8x7b", "prefill_32k", "single", None),
+    ("zamba2-7b", "long_500k", "multi", None),
+    ("internlm2-1.8b", "prefill_32k", "single", {"attention_impl": "flash"}),
+)
+DRYRUN_FLASH_CELL = "internlm2-1.8b__prefill_32k__single__flash"
+# phase 10's step traced on (1, 1) against FlopCounterMode around a real step
+# on the card: the same ops by the same formulas, so equal up to float sums
+DRYRUN_FLOPS_RTOL = 1e-9
+
+
+def _dryrun_record(rec: dict, row: dict) -> dict:
+    keep = ("compute_s", "memory_s", "collective_s", "dominant", "useful_ratio",
+            "roofline_fraction", "collective_counts")
+    return {"mesh_shape": rec["mesh_shape"], "lower_seconds": rec["lower_seconds"],
+            "total_seconds": rec["total_seconds"], "ops": rec["hlo_instructions"],
+            "flops": rec["cost"]["flops"], "bytes_accessed": rec["cost"]["bytes accessed"],
+            "wire_bytes": rec["collectives"]["_total"]["wire_bytes_per_device"],
+            "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+            "temp_bytes": rec["memory"]["temp_size_in_bytes"],
+            "kernel_calls": rec["kernel_calls"], **{k: row[k] for k in keep}}
+
+
+def dryrun(training: dict) -> dict:
+    """Phase 12: repro_torch.launch.dryrun.run_cell on each of DRYRUN_CELLS,
+    a fake world of 256 or 512 ranks with the mesh on "cuda" (fake tensors:
+    nothing is allocated, no kernel launches), each record's summary,
+    roofline row and three costliest products printed; every cell must end ok, the flash cell with one
+    flash node a layer.  Then phase 10's step (internlm2-1.8b, 8 x 512, remat
+    "full", its TrainConfig) traced on a (1, 1) world: its FLOPs must equal
+    FlopCounterMode's around one real step of phase 10 on the card (within
+    DRYRUN_FLOPS_RTOL), its compute term may not exceed phase 10's measured
+    median step, and it is printed with the memory term beside that median
+    and the profiled step's busy time."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import roofline
+
+    reset_launch_counts()
+    out = {}
+    for arch, shape, mesh, override in DRYRUN_CELLS:
+        tag = "flash" if override else ""
+        rec = dr.run_cell(arch, shape, mesh, cfg_override=override, tag=tag, device="cuda")
+        print(f"  {dr.summary(rec)}")
+        check(rec["status"] == "ok", f"dry-run of {arch} x {shape} x {mesh} failed:\n"
+                                     f"{rec.get('traceback')}")
+        row = roofline.analyze(rec)
+        print("  " + roofline.markdown_table([row]).splitlines()[-1])
+        for op in rec["top_flops"][:3]:
+            print(f"    {op['flops']:.4e} FLOPs in {op['count']} x {op['op']} {op['shapes']}")
+        out["__".join(filter(None, (arch, shape, mesh, tag)))] = _dryrun_record(rec, row)
+        if override:
+            n_layers = configs.get(arch).n_layers
+            check(rec["kernel_calls"].get("flash_attention") == n_layers,
+                  f"the flash cell traced {rec['kernel_calls']}, not {n_layers} flash calls")
+
+    shape = ShapeConfig("train_8x512", "train", TRAIN_S, TRAIN_B)
+    rec = dr.run_cell("internlm2-1.8b", shape.name, "1x1", tcfg=TrainConfig(**TRAIN_SCHEDULE),
+                      device="cuda", shape=shape, mesh_shape=(1, 1), tag="phase10")
+    print(f"  {dr.summary(rec)}")
+    check(rec["status"] == "ok", f"dry-run of phase 10's step failed:\n{rec.get('traceback')}")
+    row = roofline.analyze(rec)
+    median_s = training["median_step_ms"] / 1e3
+    print(f"  phase 10's step traced on (1, 1): {rec['cost']['flops']:.4e} FLOPs, compute term "
+          f"{1e3 * row['compute_s']:.3f} ms, memory term {1e3 * row['memory_s']:.3f} ms "
+          f"(unfused upper bound); measured: median step {1e3 * median_s:.3f} ms, profiled "
+          f"step busy {training['profiled_step_busy_ms']:.3f} ms; the traced FLOPs at the "
+          f"median step are {100 * row['compute_s'] / median_s:.1f} % of the bf16 peak")
+    check(row["compute_s"] <= median_s, f"the traced compute term {row['compute_s']:.4f} s "
+                                        f"exceeds the measured median step {median_s:.4f} s")
+    counted = training["counted_step_flops"]
+    print(f"  FlopCounterMode around one real step of phase 10 on the card: {counted:.6e} "
+          f"FLOPs; traced {rec['cost']['flops']:.6e}")
+    check(abs(rec["cost"]["flops"] - counted) <= DRYRUN_FLOPS_RTOL * counted,
+          f"the traced FLOPs {rec['cost']['flops']:.6e} differ from the {counted:.6e} counted "
+          f"around a real step by more than {DRYRUN_FLOPS_RTOL}")
+    out["phase10_step_1x1"] = {**_dryrun_record(rec, row),
+                               "counted_step_flops": counted,
+                               "median_step_ms": training["median_step_ms"],
+                               "profiled_step_busy_ms": training["profiled_step_busy_ms"]}
+    launches = launch_counts()
+    check(launches == {"flash_attention": 0, "mamba_scan": 0, "gmm": 0},
+          f"the dry-run launched {launches}; it traces fake tensors")
+    return out
+
 
 def gradient_guard() -> None:
     """A backward through any kernel route raises on the card, as on the CPU:
@@ -2051,6 +2166,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
 
+    t_start = time.perf_counter()
     print("== device")
     card = nvidia_smi()
     print(card)
@@ -2158,6 +2274,9 @@ def main() -> int:
     gradient_guard()
     print("== shard: DTensor on a (1, 1) mesh (NCCL, one rank)")
     sharded = shard()
+    print("== dryrun: fake worlds of 256 and 512 ranks, and phase 10's step on (1, 1)")
+    dry = dryrun(training)
+    print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
         "name": "flash_attention", "route": "cuda", "kernel_route": "tma_wgmma",
@@ -2166,6 +2285,7 @@ def main() -> int:
         "launches": fa_launches, "phi3_prefill_launches": phi3_launches,
         "whisper_launches": whisper_launches,
         "shard_prefill_launches": sharded["prefill"]["launches"],
+        "dryrun_traced_calls": dry[DRYRUN_FLASH_CELL]["kernel_calls"]["flash_attention"],
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],
         "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
@@ -2196,6 +2316,7 @@ def main() -> int:
     print(json.dumps({"xlstm": xlstm_record}))
     print(json.dumps({"train": training}))
     print(json.dumps({"shard": sharded}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,14 +28,27 @@ the local slabs.  No tensor is gathered whole to feed a kernel; what is
 gathered is what the local computation needs (the kv heads of a rank's
 query heads when they are not sharded with them, an expert weight's
 FSDP-sharded ``embed`` dim).
+
+On plain tensors each entry point calls a ``torch.library.custom_op``
+(``torch.ops.repro_torch.flash_attention``, ``.mamba_scan``, ``.gmm``) whose
+implementation picks the route by the tensor's device, as above.  Each op
+also has a fake implementation (the output's shape and dtype), so that a step
+traced on fake tensors (:mod:`repro_torch.launch.dryrun`) passes through the
+kernels without launching one, and a FLOP formula
+(``torch.utils.flop_counter.register_flop_formula``) that counts the work the
+kernel's bound counts in ``chip_smoke.py``: attention's QK^T and PV products
+over the unmasked pairs, the scan's intra-chunk, inter-chunk and state
+products, the grouped matmul's 2 E C D F.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba_scan as _ms
@@ -111,6 +124,85 @@ def attention_per_shard(fn, q, k, v, *batched) -> torch.Tensor:
         q, k, v, *args)
 
 
+# --- the three kernels as custom ops ------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        window: int | None, logit_softcap: float | None) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 logit_softcap=logit_softcap)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               logit_softcap=logit_softcap)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window, logit_softcap):
+    return torch.empty_like(q)
+
+
+def attended_pairs(S: int, T: int, causal: bool, window: int | None) -> int:
+    """Query-key pairs the attention scores: query i reads key j when
+    ``j <= i`` (causal) and ``i - j < window`` (a window), as the kernel's
+    mask and ``chip_smoke.py``'s bound count them."""
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window is not None else np.zeros(S, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window, logit_softcap,
+                           *args, out_shape=None, **kwargs) -> int:
+    B, S, H, D = q_shape
+    return 4 * B * H * D * attended_pairs(S, k_shape[1], causal, window)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan", mutates_args=())
+def _mamba_scan_op(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    if xh.device.type == "cpu":
+        return ref.mamba_scan_ref(xh, dt, A, Bm, Cm)[0]
+    return _ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=chunk)
+
+
+@_mamba_scan_op.register_fake
+def _(xh, dt, A, Bm, Cm, chunk):
+    return torch.empty(xh.shape, dtype=xh.dtype, device=xh.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan)
+def _mamba_scan_flops(xh_shape, dt_shape, a_shape, bm_shape, cm_shape, chunk,
+                      *args, out_shape=None, **kwargs) -> int:
+    B, S, H, P = xh_shape
+    N = bm_shape[-1]
+    n_chunks = -(-S // chunk)
+    return B * n_chunks * (2 * chunk * chunk * N
+                           + H * (2 * chunk * chunk * P + 4 * chunk * P * N))
+
+
+@torch.library.custom_op("repro_torch::gmm", mutates_args=())
+def _gmm_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return ref.gmm_ref(x, w)
+    return _gmm.gmm(x, w)
+
+
+@_gmm_op.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+@register_flop_formula(torch.ops.repro_torch.gmm)
+def _gmm_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    E, C, D = x_shape
+    return 2 * E * C * D * w_shape[2]
+
+
+# --- entry points ---------------------------------------------------------------
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
                     logit_softcap: float | None = None) -> torch.Tensor:
@@ -119,11 +211,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_per_shard(functools.partial(
             flash_attention, causal=causal, window=window, logit_softcap=logit_softcap),
             q, k, v)
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 logit_softcap=logit_softcap)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               logit_softcap=logit_softcap)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, logit_softcap)
 
 
 def mamba_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -138,10 +226,7 @@ def mamba_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
         bp = sharding.follow(xp, {0: 0})
         return sharding.local_map(functools.partial(mamba_scan, chunk=chunk), xp,
                                   (xp, dtp, ap, bp, bp), xh.device_mesh)(xh, dt, A, Bm, Cm)
-    if xh.device.type == "cpu":
-        y, _ = ref.mamba_scan_ref(xh, dt, A, Bm, Cm)
-        return y
-    return _ms.mamba_scan(xh, dt, A, Bm, Cm, chunk=chunk)
+    return torch.ops.repro_torch.mamba_scan(xh, dt, A, Bm, Cm, chunk)
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -152,9 +237,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         # (E == Ew); otherwise both go whole to every rank
         xp = sharding.follow(x.placements, {0: 0} if x.shape[0] == w.shape[0] else {})
         return sharding.local_map(gmm, xp, (xp, xp), x.device_mesh)(x, w)
-    if x.device.type == "cpu":
-        return ref.gmm_ref(x, w)
-    return _gmm.gmm(x, w)
+    return torch.ops.repro_torch.gmm(x, w)
 
 
 def moe_expert_mlp(expert_in: torch.Tensor, experts: dict, cfg) -> torch.Tensor:

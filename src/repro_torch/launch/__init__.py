@@ -1,1 +1,2 @@
-"""Launch layer of the port: the serving driver."""
+"""Launch layer of the port: the serving, training and elastic launchers, the
+meshes, and the dry-run (specs, trace, graph analysis, roofline)."""

@@ -20,6 +20,12 @@ import torch.distributed as dist
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 tensor core (data sheet)
 HBM_BANDWIDTH = 3.35e12         # B/s, HBM3 (data sheet)
 NVLINK_BANDWIDTH = 900e9        # B/s, NVLink 4, all 18 links, both directions (data sheet)
+# B/s per card and direction between nodes: one ConnectX-7 NIC per GPU at NDR
+# 400 Gb/s (NVIDIA DGX H100 data sheet).  A node holds 8 cards on NVLink, so
+# a ring over any 16-wide production mesh axis crosses nodes, and its slowest
+# hop, which paces every step of the ring, is this link, not NVLink: the
+# roofline's collective term divides a device's wire bytes by it.
+INTER_NODE_BANDWIDTH = 50e9
 
 
 def init_process_group(device_type: str = "cuda", rank: int = 0, world_size: int = 1,

@@ -16,7 +16,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import distribute_input, shard, unshard_dims
+from repro_torch.parallel.sharding import distribute_input, grad_as_forward, shard, unshard_dims
 
 
 def init_attention(cfg: ModelConfig, d_model: int | None = None):
@@ -47,7 +47,7 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(x.shape[:-2] + (-1,))
+    return grad_as_forward(x.reshape(x.shape[:-2] + (-1,)))
 
 
 def attend_xla(

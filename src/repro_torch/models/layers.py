@@ -123,7 +123,7 @@ def init_norm(d: int, norm_type: str, use_bias: bool = False):
 
 
 def apply_norm(params, x: torch.Tensor, norm_type: str, eps: float) -> torch.Tensor:
-    x32 = x.float()
+    x32 = sharding.reduce_partial(x).float()
     if norm_type == "rmsnorm":
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + eps)

@@ -194,7 +194,9 @@ def apply_mamba(
     recurrence).  Returns (out, new_cache); the cache is a new dict."""
     d_inner, H, P, N, G = dims(cfg)
     ssm = cfg.ssm
-    proj = L.apply_dense(params["in_proj"], x)
+    # whole along its columns, which mix z, x, B, C and dt: a gather whose
+    # backward hands in_proj its columns of the gradient
+    proj = sharding.unshard_dims(L.apply_dense(params["in_proj"], x), -1)
     z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
 
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)  # [B,S,Ch]

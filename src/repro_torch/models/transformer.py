@@ -23,7 +23,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import ParamSpec
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import distribute_input, shard
 
 
 def stack_specs(spec, n: int, axis_name: str = "layers"):
@@ -327,7 +327,7 @@ def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
     else:
         out = attn.attend_xla(q, k, v, causal=True, q_positions=positions,
                               kv_positions=positions)
-    x = x + L.apply_dense(ap["wo"], out.reshape(B, S, nq))
+    x = x + L.apply_dense(ap["wo"], attn._merge_heads(out))
     h = L.apply_norm(shared["mlp_norm"], x, cfg.norm_type, cfg.norm_eps)
     dup = (h @ lora_slice["mlp_a"].to(h.dtype)) @ lora_slice["mlp_b"].to(h.dtype)
     gate = F.silu(L.apply_dense(shared["mlp"]["gate"], h))
@@ -364,16 +364,20 @@ def forward_zamba(params, cfg: ModelConfig, tokens: torch.Tensor):
 def init_zamba_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
     """Zeroed decode caches: Mamba2 states stacked like the params
     (``groups`` [n_groups, period, ...], ``tail`` [tail, ...] or None) and one
-    KV cache per shared application, ``shared`` [n_groups, B, max_len, K, D]."""
+    KV cache per shared application, ``shared`` [n_groups, B, max_len, K, D].
+    Under an active mesh they are DTensors placed by their cache axes behind
+    ``("blocks", "layers")``, ``("layers",)`` and ``("layers",)``."""
     n_groups, period, tail = zamba_structure(cfg)
     one = ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+    axes = ssm_mod.mamba_cache_axes()
 
-    def stack(*lead):
-        return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
+    def stack(*lead, names):
+        return {k: distribute_input(v.expand(*lead, *v.shape).clone(), *names, *axes[k])
+                for k, v in one.items()}
 
     return {
-        "groups": stack(n_groups, period),
-        "tail": stack(tail) if tail else None,
+        "groups": stack(n_groups, period, names=("blocks", "layers")),
+        "tail": stack(tail, names=("layers",)) if tail else None,
         "shared": attn.init_kv_cache(cfg, n_groups, batch, max_len, dtype, device),
     }
 
@@ -476,13 +480,20 @@ def forward_xlstm(params, cfg: ModelConfig, tokens: torch.Tensor):
 
 def init_xlstm_cache(cfg: ModelConfig, batch: int, dtype, device):
     """Zeroed decode caches stacked like the params: ``mlstm`` {conv, C, n, m}
-    [n_super, n_m, ...] and ``slstm`` {"state": (h, c, n, m)} [n_super, ...]."""
+    [n_super, n_m, ...] and ``slstm`` {"state": (h, c, n, m)} [n_super, ...].
+    Under an active mesh they are DTensors placed by their cache axes behind
+    ``("blocks", "layers")`` and ``("blocks",)``."""
     n_super, n_m = xlstm_structure(cfg)
     one = xlstm_mod.init_mlstm_cache(cfg, batch, dtype, device)
     state = xlstm_mod.init_slstm_state(cfg, batch, device)
+    m_axes, s_axes = xlstm_mod.mlstm_cache_axes(), xlstm_mod.slstm_state_axes()
     return {
-        "mlstm": {k: v.expand(n_super, n_m, *v.shape).clone() for k, v in one.items()},
-        "slstm": {"state": tuple(t.expand(n_super, *t.shape).clone() for t in state)},
+        "mlstm": {k: distribute_input(v.expand(n_super, n_m, *v.shape).clone(),
+                                      "blocks", "layers", *m_axes[k])
+                  for k, v in one.items()},
+        "slstm": {"state": tuple(distribute_input(t.expand(n_super, *t.shape).clone(),
+                                                  "blocks", *a)
+                                 for t, a in zip(state, s_axes))},
     }
 
 

@@ -25,14 +25,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import pointwise, shard
 from repro_torch.models.ssm import _causal_conv, _conv_window
 
 # ---------------------------------------------------------------------------
 # mLSTM cell: chunkwise parallel form
 # ---------------------------------------------------------------------------
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    return pointwise(F.logsigmoid, x)
 
 
 def _denom(den: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -80,7 +85,7 @@ def mlstm_chunkwise(
     kc = chunks(k).to(f32)
     vc = chunks(v).to(f32)
     ic = chunks(i_gate).to(f32)                  # [B,H,nc,Q]
-    b = torch.cumsum(F.logsigmoid(chunks(f_gate).to(f32)), dim=-1)  # inclusive
+    b = torch.cumsum(_logsigmoid(chunks(f_gate).to(f32)), dim=-1)  # inclusive
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
 
     if state is None:
@@ -129,7 +134,7 @@ def mlstm_step(q, k, v, i_gate, f_gate, state):
     C0, n0, m0 = state
     f32 = torch.float32
     qf = q.to(f32) / math.sqrt(q.shape[-1])
-    logf = F.logsigmoid(f_gate.to(f32))
+    logf = _logsigmoid(f_gate.to(f32))
     i32 = i_gate.to(f32)
     m = torch.maximum(m0 + logf, i32)
     fw = torch.exp(logf + m0 - m)
@@ -221,7 +226,7 @@ def apply_mlstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
 
     def block_proj(t, w):
         # block-diagonal per-head projection: [B,S,H,Vd] x [H,Vd,out]
-        return torch.einsum("bshv,hvo->bhso", t.reshape(B, S, H, Vd), w.to(t.dtype))
+        return torch.einsum("bshv,hvo->bhso", attn._split_heads(t, H, Vd), w.to(t.dtype))
 
     q = block_proj(c, params["wq"])
     k = block_proj(c, params["wk"])
@@ -251,7 +256,7 @@ def apply_mlstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     # per-head norm in f32, then the learnable skip from the conv path
     h32 = h.transpose(1, 2).float().reshape(B, S, H, Vd)
     var = torch.mean(torch.square(h32), dim=-1, keepdim=True)
-    h = (h32 * torch.rsqrt(var + cfg.norm_eps)).reshape(B, S, d_inner)
+    h = attn._merge_heads(h32 * torch.rsqrt(var + cfg.norm_eps))
     h = h.to(x.dtype) * params["head_norm"].to(x.dtype)
     h = h + params["skip"].to(x.dtype) * c
     out = L.apply_dense(params["down"], h * F.silu(z))
@@ -318,7 +323,8 @@ def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple):
     H, dh = slstm_dims(cfg)
     B, S, D = x.shape
     f32 = torch.float32
-    wx = {g: L.apply_dense({"w": params[f"w_{g}"], "b": params[f"b_{g}"]}, x).reshape(B, S, H, dh)
+    wx = {g: attn._split_heads(L.apply_dense({"w": params[f"w_{g}"], "b": params[f"b_{g}"]}, x),
+                               H, dh)
           for g in GATES}
     R = {g: params[f"r_{g}"].to(f32) for g in GATES}
     h, c, n, m = state
@@ -332,7 +338,7 @@ def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple):
         it = wx["i"][:, t].to(f32) + rec("i")
         ft = wx["f"][:, t].to(f32) + rec("f")
         ot = torch.sigmoid(wx["o"][:, t].to(f32) + rec("o"))
-        logf = F.logsigmoid(ft)
+        logf = _logsigmoid(ft)
         m_new = torch.maximum(logf + m, it)
         iw = torch.exp(it - m_new)
         fw = torch.exp(logf + m - m_new)
@@ -343,7 +349,7 @@ def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple):
         h = ot * c / torch.maximum(n, one)
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype), (h, c, n, m)
+    return attn._merge_heads(torch.stack(hs, dim=1)).to(x.dtype), (h, c, n, m)
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device):

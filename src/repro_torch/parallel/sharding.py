@@ -358,6 +358,27 @@ def unshard_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
     return x.redistribute(x.device_mesh, target)
 
 
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its partial sums reduced (``Partial`` made ``Replicate``,
+    its other placements kept), and its gradient reduced the same way: for
+    an op that reads whole rows, such as a norm.  DTensor carries a partial
+    sum through ops linear in it (a row product's output, a residual add, a
+    scale), and where it meets a column-sharded weight it gathers the weight
+    rather than reduce the activation, so every rank would run that product
+    whole.  The gradient of a replicated input comes back from the column
+    products as partial sums, with the same effect on the backward products
+    behind it.  With both reduced here the products per rank are the
+    reference's (``tests/test_torch_dryrun.py``, (j))."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    target = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if target != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, target)
+    return grad_as_forward(x)
+
+
 def logical_spec(
     logical_axes: tuple[str | None, ...],
     rules: ShardingRules,
@@ -446,6 +467,44 @@ class _ContiguousGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.contiguous()
+
+
+class _GradAsForward(torch.autograd.Function):
+    """Identity whose gradient is redistributed to the placements of its
+    forward value before it flows on."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_as_forward(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient (a DTensor) comes back in ``x``'s own placements.
+
+    A reshape that merged a dim DTensor could not shard (4 heads on a model
+    axis of 16, left whole) gets back a gradient sharded along the merged dim,
+    which its backward cannot split into heads again; the gradient in the
+    forward's placements can.  A plain tensor comes back as it is."""
+    return _GradAsForward.apply(x) if is_dtensor(x) and x.requires_grad else x
+
+
+def pointwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn`` DTensor has no strategy for
+    (``F.logsigmoid``): per rank on ``x``'s shards, partial sums reduced
+    first.  A plain tensor goes straight to ``fn``."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+
+    placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return local_map(fn, placements, (placements,), x.device_mesh)(x)
 
 
 def local_map(fn, out_placements, in_placements, mesh, in_grad_placements=None):
