@@ -81,7 +81,10 @@ Phases, each of which raises on failure (a non-zero exit):
               launches a batch, per shard through local_map) against the
               unsharded one; SMOKE zamba2-7b eval (the scan per shard) and
               mixtral-8x7b apply_moe(use_gmm=True) (gmm per shard) against
-              their unsharded runs; and the elastic flow at 2 layers, a
+              their unsharded runs; whisper-medium's flash prefill at full
+              size (48 launches a batch, 24 non-causal, per shard) and
+              xlstm-1.3b at full width and one super-block deep (2 training
+              steps), each against its unsharded run; and the elastic flow at 2 layers, a
               NodeFailure caught and the state resharded onto the 1-D
               ("data",) mesh, which must end SUCCEEDED.
 12. dryrun  - repro_torch.launch.dryrun on fake worlds of 256 and 512 ranks
@@ -89,7 +92,8 @@ Phases, each of which raises on failure (a non-zero exit):
               no kernel launch): internlm2-1.8b train_4k, mixtral-8x7b
               prefill_32k, zamba2-7b long_500k on the 512-rank mesh and
               internlm2-1.8b prefill_32k through the flash kernel's custom op
-              (one traced call a layer) must end ok, each with its roofline
+              (one traced call a layer), xlstm-1.3b train_4k and
+              whisper-medium prefill_32k must end ok, each with its roofline
               row; then phase 10's step traced on a (1, 1) world, whose
               compute term may not exceed phase 10's measured median step.
 
@@ -1767,6 +1771,129 @@ def shard_prefill(mesh, B: int = 8, S: int = 512) -> dict:
             "cache_rel": rel_cache}
 
 
+def shard_whisper_prefill(mesh, B: int = 8, prompt: int = 64) -> dict:
+    """whisper-medium prefill under "flash" at full size on ``mesh``: 48 flash
+    launches a batch, 24 of them non-causal (the encoder), per shard through
+    local_map; logits and both caches (self and cross) within SHARD_TOL of
+    the unsharded flash prefill (ROADMAP F7: the caches are placed on the
+    mesh)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import param_axes, param_shapes
+    from repro_torch.parallel import sharding as sh
+
+    t_part = time.perf_counter()
+    model, params = big_model("whisper-medium")
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    frames = torch.as_tensor(rng.standard_normal((B, WHISPER_FRAMES, cfg.d_model)),
+                             dtype=torch.float32, device="cuda")
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, prompt)), device="cuda")
+    batch = {"frames": frames, "tokens": tokens}
+    with torch.inference_mode():
+        model.prefill(params, batch, None)  # set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_cache = model.prefill(params, batch, None)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        dparams = sh.distribute_tree(params, sh.param_shardings(
+            param_axes(cfg), mesh, sh.PARAM_RULES, param_shapes(cfg)))
+        with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+            dbatch = {"frames": sh.distribute_input(frames, "batch", "seq", "embed"),
+                      "tokens": sh.distribute_input(tokens, "batch", "seq")}
+            model.prefill(dparams, dbatch, None)  # set-up
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got, cache = model.prefill(dparams, dbatch, None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, noncausal = launch_counts(), fa.flash_attention.noncausal_launches
+            got = got.full_tensor().float()
+            rel_cache = {f"{part}_{kv}": rel_l2(cache[part][kv].full_tensor().float(),
+                                                want_cache[part][kv].float())
+                         for part in ("self", "cross_kv") for kv in ("k", "v")}
+    rel = rel_l2(got, want.float())
+    seconds = time.perf_counter() - t_part
+    print(f"  sharded whisper flash prefill of {B} x ({WHISPER_FRAMES} frames, {prompt} tokens): "
+          f"{1e3 * wall:.3f} ms (unsharded {1e3 * plain_wall:.3f} ms), launches {launches}, "
+          f"{noncausal} non-causal; logits vs unsharded (relative L2) {rel:.3e}, caches "
+          f"{rel_cache} (tol {SHARD_TOL}); part {seconds:.1f} s")
+    n_layers = cfg.n_layers + cfg.n_encoder_layers
+    want_launches = {"flash_attention": n_layers, "mamba_scan": 0, "gmm": 0}
+    check(launches == want_launches and noncausal == cfg.n_encoder_layers,
+          f"sharded whisper prefill launched {launches}, {noncausal} non-causal; want "
+          f"{want_launches}, {cfg.n_encoder_layers}")
+    check(rel <= SHARD_TOL and max(rel_cache.values()) <= SHARD_TOL,
+          f"sharded whisper prefill differs: {rel} {rel_cache}")
+    del model, params, dparams, cache, want_cache
+    torch.cuda.empty_cache()
+    return {"ms": 1e3 * wall, "unsharded_ms": 1e3 * plain_wall,
+            "launches": launches["flash_attention"], "noncausal_launches": noncausal,
+            "logits_rel": rel, "cache_rel": rel_cache, "seconds": seconds}
+
+
+# one xLSTM super-block at full width: 7 mLSTM blocks and 1 sLSTM block
+XLSTM_SHARD_LAYERS = 8
+
+
+def shard_xlstm_train(mesh) -> dict:
+    """SHARD_STEPS steps of xlstm-1.3b at full width and one super-block deep
+    (XLSTM_SHARD_LAYERS layers; f32 params redrawn from seed 0, bf16 compute,
+    the config's remat) on TRAIN_B x TRAIN_S batches through TrainingFabric,
+    unsharded and then on ``mesh`` from the same weights (ROADMAP F6): losses
+    within SHARD_TOL (and whether bit for bit), step ms, no kernel launched."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.testing import redraw_params_
+    from repro_torch.train.loop import TrainState
+    from repro_torch.train.optimizer import init_adamw
+
+    t_part = time.perf_counter()
+    cfg = configs.get("xlstm-1.3b").replace(n_layers=XLSTM_SHARD_LAYERS)
+    out = {}
+    weights = None
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        fabric = _shard_fabric(cfg, m, ROOT / "build" / "shard_xlstm")
+        if weights is None:
+            redraw_params_(fabric.state.params, seed=0)
+            weights = L.map_tree(torch.clone, fabric.state.params)
+        else:
+            params = sh.distribute_tree(L.map_tree(torch.clone, weights),
+                                        fabric._shardings()[0])
+            fabric.state = TrainState(params, init_adamw(params))
+        reset_launch_counts()
+        records = []
+        for _ in range(SHARD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = fabric.train_steps(1)
+            records.append((rec["loss"], 1e3 * (time.perf_counter() - t0)))
+        launches = launch_counts()
+        out[name] = {"losses": [r[0] for r in records], "step_ms": [r[1] for r in records]}
+        print(f"  xlstm-1.3b ({cfg.n_layers} layers, d {cfg.d_model}) {name}: losses "
+              f"{out[name]['losses']}, step ms {[round(ms, 3) for ms in out[name]['step_ms']]}")
+        check(launches == {"flash_attention": 0, "mamba_scan": 0, "gmm": 0},
+              f"xlstm {name} training launched {launches}")
+        del fabric
+        torch.cuda.empty_cache()
+    del weights
+    a, b = out["sharded"]["losses"], out["unsharded"]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    out.update(loss_rel=rel, bit_for_bit=a == b, seconds=time.perf_counter() - t_part)
+    print(f"  xlstm sharded vs unsharded losses: relative {rel:.3e} (tol {SHARD_TOL}), "
+          f"{'bit for bit' if a == b else 'not bit for bit'}; part {out['seconds']:.1f} s")
+    check(all(x == x for x in a + b), f"xlstm losses not finite: {a} {b}")
+    check(rel <= SHARD_TOL, f"xlstm sharded losses {a} differ from unsharded {b}")
+    return out
+
+
 def shard_smoke(mesh) -> dict:
     """SMOKE zamba2-7b eval under "flash" (the scan, per shard) and SMOKE
     mixtral-8x7b's apply_moe(use_gmm=True) on layer 0 (gmm, experts per
@@ -1869,8 +1996,9 @@ def shard_flow(mesh) -> dict:
 
 def shard() -> dict:
     """Phase 11: a world of one NCCL rank, a (1, 1) ("data", "model") mesh on
-    the card, and the sharded paths on it (training, flash prefill, the scan
-    and gmm per shard, the elastic flow).  Returns their records."""
+    the card, and the sharded paths on it (training, flash prefill,
+    whisper's flash prefill, xLSTM training, the scan and gmm per shard, the
+    elastic flow).  Returns their records."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_process_group, make_mesh
@@ -1880,6 +2008,8 @@ def shard() -> dict:
         mesh = make_mesh((1, 1), ("data", "model"))
         out = {"train": shard_train(mesh)}
         out["prefill"] = shard_prefill(mesh)
+        out["whisper_prefill"] = shard_whisper_prefill(mesh)
+        out["xlstm_train"] = shard_xlstm_train(mesh)
         out.update(shard_smoke(mesh))
         out["flow"] = shard_flow(mesh)
     finally:
@@ -1893,13 +2023,16 @@ def shard() -> dict:
 
 # (arch, shape, mesh, cfg_override): a training cell on 256 ranks, an MoE
 # prefill, the long-context decode whose cache shards its sequence over the
-# 512-rank mesh's ("pod", "data"), and a prefill traced through the flash
-# kernel's custom op
+# 512-rank mesh's ("pod", "data"), a prefill traced through the flash
+# kernel's custom op, xLSTM's training (its loops as single ops, ROADMAP F6)
+# and whisper's prefill (its caches on the mesh, F7)
 DRYRUN_CELLS = (
     ("internlm2-1.8b", "train_4k", "single", None),
     ("mixtral-8x7b", "prefill_32k", "single", None),
     ("zamba2-7b", "long_500k", "multi", None),
     ("internlm2-1.8b", "prefill_32k", "single", {"attention_impl": "flash"}),
+    ("xlstm-1.3b", "train_4k", "single", None),
+    ("whisper-medium", "prefill_32k", "single", None),
 )
 DRYRUN_FLASH_CELL = "internlm2-1.8b__prefill_32k__single__flash"
 # phase 10's step traced on (1, 1) against FlopCounterMode around a real step
@@ -2285,6 +2418,8 @@ def main() -> int:
         "launches": fa_launches, "phi3_prefill_launches": phi3_launches,
         "whisper_launches": whisper_launches,
         "shard_prefill_launches": sharded["prefill"]["launches"],
+        "shard_whisper_prefill_launches": sharded["whisper_prefill"]["launches"],
+        "shard_whisper_prefill_noncausal": sharded["whisper_prefill"]["noncausal_launches"],
         "dryrun_traced_calls": dry[DRYRUN_FLASH_CELL]["kernel_calls"]["flash_attention"],
         "max_abs_err": attn["max_abs_err"],
         "ms": attn["ms"], "plain_ms": attn["plain_ms"],

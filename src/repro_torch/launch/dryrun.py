@@ -15,7 +15,10 @@ holds those (and not the global-shape ops DTensor's sharding propagation runs
 to learn output shapes).  The step runs eagerly, so each op appears once per
 time it runs: a layer loop is counted at full depth (the reference unrolls
 its scans for the same reason), the backward once, and remat's recompute
-where it happens.  :mod:`repro_torch.launch.hlo` reads the graph.
+where it happens.  xLSTM's loops over chunks and over time are the
+exception: each is one op with a FLOP formula, one node a call, as each is
+one loop in the reference's compiled step.  :mod:`repro_torch.launch.hlo`
+reads the graph.
 
 Usage::
 
@@ -62,8 +65,9 @@ RESULTS_DIR = os.path.join(
     "build", "dryrun",
 )
 
-#: a trace that records more local ops than this stops with an error (the
-#: sLSTM's Python time loop at 4096 steps would record millions)
+#: a trace that records more local ops than this stops with an error (a
+#: Python loop over time or chunks would record millions; xLSTM's two loops
+#: are single ops for this, ``repro_torch.models.xlstm``)
 MAX_OPS = 500_000
 
 

@@ -81,6 +81,8 @@ def analyze(record: dict) -> dict:
         "hlo_flops_global": flops_dev * chips,
         "useful_ratio": useful,
         "ideal_s": ideal_t,
+        "flops_dev": flops_dev,
+        "trace_s": record.get("lower_seconds"),
         "roofline_fraction": (ideal_t / bound_t) if bound_t else 0.0,
         "temp_bytes_dev": record.get("memory", {}).get("temp_size_in_bytes"),
         "arg_bytes_dev": record.get("memory", {}).get("argument_size_in_bytes"),
@@ -110,20 +112,21 @@ def load_records(mesh: str | None = None, tag: str | None = "") -> list[dict]:
 def markdown_table(rows: list[dict]) -> str:
     header = (
         "| arch | shape | mesh | compute s | memory s | collective s | "
-        "dominant | useful | roofline frac |\n"
-        "|---|---|---|---|---|---|---|---|---|\n"
+        "dominant | useful | roofline frac | FLOPs/card | trace s |\n"
+        "|---|---|---|---|---|---|---|---|---|---|---|\n"
     )
     lines = []
     for r in rows:
         if r.get("status") != "ok":
             lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | — | — | — | "
-                         f"ERROR | — | — |")
+                         f"ERROR | — | — | — | — |")
             continue
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} "
             f"| {r['compute_s']:.3f} | {r['memory_s']:.3f} "
             f"| {r['collective_s']:.3f} | **{r['dominant']}** "
-            f"| {r['useful_ratio']:.2f} | {r['roofline_fraction']:.3f} |"
+            f"| {r['useful_ratio']:.2f} | {r['roofline_fraction']:.3f} "
+            f"| {r['flops_dev']:.3e} | {r['trace_s']:.1f} |"
         )
     return header + "\n".join(lines) + "\n"
 

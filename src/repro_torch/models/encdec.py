@@ -136,16 +136,13 @@ def forward_encdec(params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch
 
 def init_encdec_cache(cfg: ModelConfig, batch: int, enc_len: int, dtype, device):
     """Zeroed caches stacked over the decoder layers: ``self`` {k, v}
-    [L, B, max_target_positions, K, D] and ``cross_kv`` {k, v} [L, B, enc_len, K, D]."""
-    hd = cfg.resolved_head_dim
-
-    def zeros(length):
-        return torch.zeros((cfg.n_layers, batch, length, cfg.n_kv_heads, hd), dtype=dtype,
-                           device=device)
-
+    [L, B, max_target_positions, K, D] and ``cross_kv`` {k, v} [L, B, enc_len, K, D].
+    Under an active mesh they are DTensors placed by ``("layers",) +
+    kv_cache_axes()``, as the reference's cache specs place them."""
     return {
-        "self": {"k": zeros(cfg.max_target_positions), "v": zeros(cfg.max_target_positions)},
-        "cross_kv": {"k": zeros(enc_len), "v": zeros(enc_len)},
+        "self": attn.init_kv_cache(cfg, cfg.n_layers, batch, cfg.max_target_positions,
+                                   dtype, device),
+        "cross_kv": attn.init_kv_cache(cfg, cfg.n_layers, batch, enc_len, dtype, device),
     }
 
 

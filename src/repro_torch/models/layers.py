@@ -123,7 +123,7 @@ def init_norm(d: int, norm_type: str, use_bias: bool = False):
 
 
 def apply_norm(params, x: torch.Tensor, norm_type: str, eps: float) -> torch.Tensor:
-    x32 = sharding.reduce_partial(x).float()
+    x32 = sharding.whole_rows(x).float()
     if norm_type == "rmsnorm":
         var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + eps)
@@ -164,7 +164,10 @@ def init_embedding(vocab: int, d: int):
 
 
 def apply_embedding(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    table = params["table"].to(compute_dtype)
+    # the table's gradient comes back in its own placements from each use, so
+    # that a tied table's two gradients add (some DTensor versions cannot
+    # turn one's shard into the other's partial sum: whisper's train_4k)
+    table = sharding.grad_as_forward(params["table"]).to(compute_dtype)
     if not sharding.is_dtensor(table):
         return table[tokens]
     # DTensor's index and index_put (the lookup's backward) lack a working
@@ -183,7 +186,7 @@ def apply_embedding(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor
 def apply_unembed(params, x: torch.Tensor,
                   logit_softcap: float | None = None) -> torch.Tensor:
     """Project to vocabulary (optionally shared with the embedding table)."""
-    logits = x @ params["table"].to(x.dtype).T
+    logits = x @ sharding.grad_as_forward(params["table"]).to(x.dtype).T
     if logit_softcap:
         logits = logit_softcap * torch.tanh(logits / logit_softcap)
     return logits

@@ -167,20 +167,30 @@ def _experts(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, w_gate, w
 
 
 def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, *weights):
-    """:func:`_experts` of DTensors, per rank on its groups and experts (the
-    placements the "batch" and "experts" annotations give), the expert
-    weights gathered along their FSDP-sharded dims.  Each rank's output is
-    its experts' share of the combine, a partial sum over the ranks along the
-    experts; xg's gradient is one there too, and the weights' over the ranks
-    along the groups.  DTensor's einsums would fold sharded dims into one
-    that some versions cannot split."""
-    dp = sharding.act_placements(dispatch_t, "batch", None, "experts", None)
-    xp = sharding.follow(dp, {0: 0})
-    wp = sharding.follow(dp, {2: 0})
-    x_grad = sharding.grad_placements(dp, {0: 0}, {2})
-    w_grad = sharding.grad_placements(dp, {2: 0}, {0})
+    """:func:`_experts` of DTensors, per rank on the slice of the expert FFN
+    that the placement of its hidden ``h`` [G,E,C,F] gives it under the
+    rules (``"batch", "experts", "expert_capacity", "mlp"``): its groups, and
+    its experts, or, where the experts do not divide the model axis (8 on a
+    model axis of 16), its columns of the hidden dim, as the reference's
+    joint assignment gives "model" to "mlp" then.  The expert weights are
+    gathered along their FSDP-sharded dims.  Each rank's output is its share
+    of the combine, a partial sum over the ranks along the experts or the
+    hidden dim; xg's and the combine weights' gradients are one there too,
+    and the weights' over the ranks along the groups.  DTensor's einsums
+    would fold sharded dims into one that some versions cannot split."""
+    G, _, E, C = dispatch_t.shape
+    F_ = weights[0].shape[-1]
+    hp = sharding.act_placements(dispatch_t.new_empty(()).expand(G, E, C, F_),
+                                 "batch", "experts", "expert_capacity", "mlp")
+    dp = sharding.follow(hp, {0: 0, 1: 2})
+    xp = sharding.follow(hp, {0: 0})
+    w_in, w_out = sharding.follow(hp, {1: 0, 3: 2}), sharding.follow(hp, {1: 0, 3: 1})
+    x_grad = sharding.grad_placements(hp, {0: 0}, {1, 3})
+    d_grad = sharding.grad_placements(hp, {0: 0, 1: 2}, {3})
+    in_grad, out_grad = (sharding.grad_placements(hp, {1: 0, 3: d}, {0}) for d in (2, 1))
     out = x_grad  # the output is laid out as xg's gradient is
     return sharding.local_map(functools.partial(_experts, cfg, use_gmm), out,
-                              (xp, dp, dp, wp, wp, wp), xg.device_mesh,
-                              in_grad_placements=(x_grad, None, None, w_grad, w_grad, w_grad))(
+                              (xp, dp, dp, w_in, w_in, w_out), xg.device_mesh,
+                              in_grad_placements=(x_grad, d_grad, d_grad,
+                                                  in_grad, in_grad, out_grad))(
         xg, dispatch_t, combine, *weights)

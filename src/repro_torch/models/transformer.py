@@ -23,6 +23,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import distribute_input, shard
 
 
@@ -295,6 +296,15 @@ def _apply_mamba_layer(p, cfg: ModelConfig, x, cache=None, prefill=False):
     return x + out, new_cache
 
 
+def _plus_lora(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """``base + delta`` with the partial sums of both reduced first: a
+    projection's output may be a partial sum where the LoRA delta is
+    sharded, and the add would turn the shard into a partial sum, a
+    redistribution some DTensor versions lack (torch 2.11, zamba2-7b
+    decode_32k on (16, 16))."""
+    return sharding.reduce_partial(base) + sharding.reduce_partial(delta)
+
+
 def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
                             cache=None, cache_position=None):
     """Shared attention block; LoRA delta on the fused QKV and MLP-up.
@@ -311,9 +321,9 @@ def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
     dq, dk, dv = torch.split(delta, [nq, nk, nk], dim=-1)
     ap = shared["attn"]
     B, S = h.shape[0], h.shape[1]
-    q = attn._split_heads(L.apply_dense(ap["wq"], h) + dq, cfg.n_heads, hd)
-    k = attn._split_heads(L.apply_dense(ap["wk"], h) + dk, cfg.n_kv_heads, hd)
-    v = attn._split_heads(L.apply_dense(ap["wv"], h) + dv, cfg.n_kv_heads, hd)
+    q = attn._split_heads(_plus_lora(L.apply_dense(ap["wq"], h), dq), cfg.n_heads, hd)
+    k = attn._split_heads(_plus_lora(L.apply_dense(ap["wk"], h), dk), cfg.n_kv_heads, hd)
+    v = attn._split_heads(_plus_lora(L.apply_dense(ap["wv"], h), dv), cfg.n_kv_heads, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
@@ -331,7 +341,7 @@ def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
     h = L.apply_norm(shared["mlp_norm"], x, cfg.norm_type, cfg.norm_eps)
     dup = (h @ lora_slice["mlp_a"].to(h.dtype)) @ lora_slice["mlp_b"].to(h.dtype)
     gate = F.silu(L.apply_dense(shared["mlp"]["gate"], h))
-    up = L.apply_dense(shared["mlp"]["up"], h) + dup
+    up = _plus_lora(L.apply_dense(shared["mlp"]["up"], h), dup)
     return x + L.apply_dense(shared["mlp"]["down"], gate * up)
 
 

@@ -9,6 +9,12 @@ gating is stabilised with the running max ``m`` as in the paper (eq. 15/26).
 The sLSTM has recurrent (block-diagonal) weights and runs as a loop over
 time, one step at a time in f32.
 
+Each of the two loops is one ``torch.library`` op with a FLOP formula
+(``repro_torch::mlstm_chunkwise``, ``repro_torch::slstm_scan``, and their
+backward ops), so that a traced step records a loop as one node, as XLA
+keeps a scan as one loop; on real tensors each runs the same loop of plain
+ops.  Under a mesh each runs per rank on its batch rows and heads.
+
 Cell equations (mLSTM, per head; q,k in R^K, v in R^V):
     logf_t = logsigmoid(f~_t)
     m_t   = max(m_{t-1} + logf_t, i~_t)
@@ -23,11 +29,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import pointwise, shard
 from repro_torch.models.ssm import _causal_conv, _conv_window
 
@@ -62,7 +70,33 @@ def mlstm_chunkwise(
     state: tuple | None = None,   # (C [B,H,K,V], n [B,H,K], m [B,H])
     return_state: bool = False,
 ):
-    """h [B,H,S,V] in v's dtype (and the final (C, n, m) in f32 if asked)."""
+    """h [B,H,S,V] in v's dtype (and the final (C, n, m) in f32 if asked).
+
+    The chunk loop is one op, ``torch.ops.repro_torch.mlstm_chunkwise``
+    (:func:`_mlstm_chunks` on real tensors), whose gradient is autograd's
+    through the same loop, run again in the op's backward: a traced step
+    (:mod:`repro_torch.launch.dryrun`) records the loop as one node with the
+    FLOPs of its products, where its ops one by one would be hundreds of
+    thousands at 32k tokens.  On DTensors it runs per rank on its batch rows
+    and heads (:func:`_mlstm_per_shard`)."""
+    if sharding.is_dtensor(q):
+        return _mlstm_per_shard(q, k, v, i_gate, f_gate, chunk, state, return_state)
+    if state is None:
+        state = initial_mlstm_state(q.shape[0], q.shape[1], q.shape[3], v.shape[3], q.device)
+    h, *final = torch.ops.repro_torch.mlstm_chunkwise(q, k, v, i_gate, f_gate, *state, chunk)
+    return (h, tuple(final)) if return_state else h
+
+
+def initial_mlstm_state(batch: int, heads: int, K: int, V: int, device):
+    """The zero state (C, n, m = -inf) in f32."""
+    f32 = torch.float32
+    return (torch.zeros((batch, heads, K, V), dtype=f32, device=device),
+            torch.zeros((batch, heads, K), dtype=f32, device=device),
+            torch.full((batch, heads), -torch.inf, dtype=f32, device=device))
+
+
+def _mlstm_chunks(q, k, v, i_gate, f_gate, chunk: int, state: tuple):
+    """The chunkwise-parallel mLSTM of plain tensors: (h, (C, n, m))."""
     Bsz, H, S, K = q.shape
     V = v.shape[-1]
     f32 = torch.float32
@@ -88,12 +122,7 @@ def mlstm_chunkwise(
     b = torch.cumsum(_logsigmoid(chunks(f_gate).to(f32)), dim=-1)  # inclusive
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
 
-    if state is None:
-        C0 = torch.zeros((Bsz, H, K, V), dtype=f32, device=q.device)
-        n0 = torch.zeros((Bsz, H, K), dtype=f32, device=q.device)
-        m0 = torch.full((Bsz, H), -torch.inf, dtype=f32, device=q.device)
-    else:
-        C0, n0, m0 = (s.to(f32) for s in state)
+    C0, n0, m0 = (s.to(f32) for s in state)
 
     hs = []
     for c in range(nc):
@@ -124,9 +153,97 @@ def mlstm_chunkwise(
         m0 = m_new
 
     h = torch.stack(hs, dim=2).reshape(Bsz, H, S, V)[:, :, :orig_S].to(v.dtype)
-    if return_state:
-        return h, (C0, n0, m0)
-    return h
+    return h, (C0, n0, m0)
+
+
+@torch.library.custom_op("repro_torch::mlstm_chunkwise", mutates_args=())
+def _mlstm_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
+              f_gate: torch.Tensor, C: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+              chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    h, final = _mlstm_chunks(q, k, v, i_gate, f_gate, chunk, (C, n, m))
+    return (h, *final)
+
+
+@_mlstm_op.register_fake
+def _(q, k, v, i_gate, f_gate, C, n, m, chunk):
+    f32 = torch.float32
+    return (torch.empty_like(v), torch.empty(C.shape, dtype=f32, device=C.device),
+            torch.empty(n.shape, dtype=f32, device=n.device),
+            torch.empty(m.shape, dtype=f32, device=m.device))
+
+
+@torch.library.custom_op("repro_torch::mlstm_chunkwise_backward", mutates_args=())
+def _mlstm_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       i_gate: torch.Tensor, f_gate: torch.Tensor, C: torch.Tensor,
+                       n: torch.Tensor, m: torch.Tensor, chunk: int, dh: torch.Tensor,
+                       dC: torch.Tensor, dn: torch.Tensor, dm: torch.Tensor) -> list[torch.Tensor]:
+    # torch.func's vjp, since an op's implementation runs below autograd
+    def fwd(q, k, v, i_gate, f_gate, C, n, m):
+        h, final = _mlstm_chunks(q, k, v, i_gate, f_gate, chunk, (C, n, m))
+        return (h, *final)
+
+    _, vjp = torch.func.vjp(fwd, q, k, v, i_gate, f_gate, C, n, m)
+    return list(vjp((dh, dC, dn, dm)))
+
+
+@_mlstm_backward_op.register_fake
+def _(q, k, v, i_gate, f_gate, C, n, m, chunk, dh, dC, dn, dm):
+    return [torch.empty_like(t) for t in (q, k, v, i_gate, f_gate, C, n, m)]
+
+
+def _mlstm_setup(ctx, inputs, output):
+    ctx.chunk = inputs[8]
+    ctx.save_for_backward(*inputs[:8])
+
+
+def _mlstm_grad(ctx, dh, dC, dn, dm):
+    saved = ctx.saved_tensors
+    grads = [torch.zeros_like(like) if g is None else g
+             for g, like in zip((dh, dC, dn, dm), (saved[2], saved[5], saved[6], saved[7]))]
+    return (*torch.ops.repro_torch.mlstm_chunkwise_backward(*saved, ctx.chunk, *grads), None)
+
+
+torch.library.register_autograd("repro_torch::mlstm_chunkwise", _mlstm_grad,
+                                setup_context=_mlstm_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunkwise)
+def _mlstm_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    B, H, S, K = q_shape
+    V = v_shape[-1]
+    chunk = args[-1]
+    Q = chunk
+    nc = -(-S // chunk)
+    # per chunk: q k^T and S v (intra), q C and q n (inter), the C and n updates
+    return B * H * nc * (2 * Q * Q * K + 2 * Q * Q * V + 4 * Q * K * V + 4 * Q * K)
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunkwise_backward)
+def _mlstm_backward_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    # the forward again, and the gradient of each product (two of its size)
+    return 3 * _mlstm_flops(q_shape, k_shape, v_shape, *args[:6])
+
+
+def _mlstm_per_shard(q, k, v, i_gate, f_gate, chunk, state, return_state):
+    """:func:`mlstm_chunkwise` on DTensors, per rank on its batch rows and
+    heads (every input and output is ``[B, H, ...]``): the cell is
+    independent across both.  Left to DTensor, the chunk loop's einsums come
+    back in the backward with the chunk's time dim split over "model" (2
+    heads on 4 model ranks, replicated there), which the block projection's
+    backward cannot view into its product shape; per rank there is no plan
+    to make, and each rank's gradients are its own slices."""
+    qp = sharding.act_placements(q, "batch", "lstm_heads", "seq", None)
+    p = sharding.follow(qp, {0: 0, 1: 1})
+    inputs = (q, k, v, i_gate, f_gate) + tuple(state or ())
+
+    def local(q, k, v, i_gate, f_gate, *st):
+        out = mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk, st or None, return_state)
+        return (out[0], *out[1]) if return_state else out
+
+    n_out = 4 if return_state else 1
+    out = sharding.local_map(local, (p,) * n_out if return_state else p,
+                             (p,) * len(inputs), q.device_mesh)(*inputs)
+    return (out[0], tuple(out[1:])) if return_state else out
 
 
 def mlstm_step(q, k, v, i_gate, f_gate, state):
@@ -151,13 +268,7 @@ def mlstm_step(q, k, v, i_gate, f_gate, state):
 def mlstm_reference(q, k, v, i_gate, f_gate):
     """Sequential oracle (tests): the step-by-step recurrence."""
     Bsz, H, S, K = q.shape
-    V = v.shape[-1]
-    f32 = torch.float32
-    state = (
-        torch.zeros((Bsz, H, K, V), dtype=f32, device=q.device),
-        torch.zeros((Bsz, H, K), dtype=f32, device=q.device),
-        torch.full((Bsz, H), -torch.inf, dtype=f32, device=q.device),
-    )
+    state = initial_mlstm_state(Bsz, H, K, v.shape[-1], q.device)
     hs = []
     for t in range(S):
         h, state = mlstm_step(q[:, :, t], k[:, :, t], v[:, :, t], i_gate[:, :, t],
@@ -219,7 +330,10 @@ def apply_mlstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     Returns (x + block(x), new cache or None); the cache is a new dict."""
     d_inner, H, Kd, Vd = mlstm_dims(cfg)
     y = L.apply_norm(params["norm"], x, cfg.norm_type, cfg.norm_eps)
-    u, z = torch.chunk(L.apply_dense(params["up"], y), 2, dim=-1)
+    # the product sharded along its columns, then gathered for the split:
+    # DTensor would otherwise gather the weight and run it whole (as F5 found
+    # for Mamba2's in-projection)
+    u, z = torch.chunk(sharding.unshard_dims(L.apply_dense(params["up"], y), -1), 2, dim=-1)
     c, new_conv = _conv_silu(u, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype),
                              cache["conv"] if cache is not None else None)
     B, S = x.shape[0], x.shape[1]
@@ -267,13 +381,11 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device):
     """One mLSTM layer's zeroed decode cache: conv window in ``dtype``, f32
     C, n and m = -inf."""
     d_inner, H, Kd, Vd = mlstm_dims(cfg)
-    f32 = torch.float32
+    C, n, m = initial_mlstm_state(batch, H, Kd, Vd, device)
     return {
         "conv": torch.zeros((batch, cfg.xlstm.conv_width - 1, d_inner), dtype=dtype,
                             device=device),
-        "C": torch.zeros((batch, H, Kd, Vd), dtype=f32, device=device),
-        "n": torch.zeros((batch, H, Kd), dtype=f32, device=device),
-        "m": torch.full((batch, H), -torch.inf, dtype=f32, device=device),
+        "C": C, "n": n, "m": m,
     }
 
 
@@ -316,40 +428,127 @@ def init_slstm_block(cfg: ModelConfig):
     }
 
 
-def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple):
-    """The sLSTM over time, one step at a time in f32 (the reference's
-    ``lax.scan``).  x [B,S,D]; state (h, c, n, m) each [B,H,dh] f32.
-    Returns (h [B,S,D] in x's dtype, final state)."""
-    H, dh = slstm_dims(cfg)
-    B, S, D = x.shape
-    f32 = torch.float32
-    wx = {g: attn._split_heads(L.apply_dense({"w": params[f"w_{g}"], "b": params[f"b_{g}"]}, x),
-                               H, dh)
-          for g in GATES}
-    R = {g: params[f"r_{g}"].to(f32) for g in GATES}
+def _slstm_steps(wx, R, state):
+    """The sLSTM recurrence over time, one step at a time in f32 (the
+    reference's ``lax.scan``).  wx: the four gates' input projections
+    (z, i, f, o) [B,S,H,dh] f32; R: their recurrent weights [H,dh,dh] f32;
+    state: (h, c, n, m) [B,H,dh] f32.  Returns the states after every step,
+    (h, c, n, m) each stacked [B,S,H,dh]."""
     h, c, n, m = state
-    one = torch.ones((), dtype=f32, device=x.device)
-    hs = []
-    for t in range(S):
-        def rec(g):
-            return torch.einsum("bhd,hde->bhe", h, R[g])
-
-        zt = torch.tanh(wx["z"][:, t].to(f32) + rec("z"))
-        it = wx["i"][:, t].to(f32) + rec("i")
-        ft = wx["f"][:, t].to(f32) + rec("f")
-        ot = torch.sigmoid(wx["o"][:, t].to(f32) + rec("o"))
-        logf = _logsigmoid(ft)
-        m_new = torch.maximum(logf + m, it)
-        iw = torch.exp(it - m_new)
+    one = torch.ones((), dtype=h.dtype, device=h.device)
+    hs, cs, ns, ms = [], [], [], []
+    for t in range(wx[0].shape[1]):
+        pz, pi, pf, po = (w[:, t] + torch.einsum("bhd,hde->bhe", h, r) for w, r in zip(wx, R))
+        logf = F.logsigmoid(pf)
+        m_new = torch.maximum(logf + m, pi)
+        iw = torch.exp(pi - m_new)
         fw = torch.exp(logf + m - m_new)
-        c = fw * c + iw * zt
+        c = fw * c + iw * torch.tanh(pz)
         n = fw * n + iw
         # maximum, not clamp: at a tie (n is exactly 1 at the first step) both
         # split the gradient in half, as jnp.maximum does
-        h = ot * c / torch.maximum(n, one)
+        h = torch.sigmoid(po) * c / torch.maximum(n, one)
         m = m_new
-        hs.append(h)
-    return attn._merge_heads(torch.stack(hs, dim=1)).to(x.dtype), (h, c, n, m)
+        for out, v in zip((hs, cs, ns, ms), (h, c, n, m)):
+            out.append(v)
+    return tuple(torch.stack(v, dim=1) for v in (hs, cs, ns, ms))
+
+
+@torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
+def _slstm_scan_op(wz: torch.Tensor, wi: torch.Tensor, wf: torch.Tensor, wo: torch.Tensor,
+                   rz: torch.Tensor, ri: torch.Tensor, rf: torch.Tensor, ro: torch.Tensor,
+                   h: torch.Tensor, c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _slstm_steps((wz, wi, wf, wo), (rz, ri, rf, ro), (h, c, n, m))
+
+
+@_slstm_scan_op.register_fake
+def _(wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m):
+    return tuple(torch.empty_like(wz) for _ in range(4))
+
+
+@torch.library.custom_op("repro_torch::slstm_scan_backward", mutates_args=())
+def _slstm_scan_backward_op(wz: torch.Tensor, wi: torch.Tensor, wf: torch.Tensor,
+                            wo: torch.Tensor, rz: torch.Tensor, ri: torch.Tensor,
+                            rf: torch.Tensor, ro: torch.Tensor, h: torch.Tensor,
+                            c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                            dhs: torch.Tensor, dcs: torch.Tensor, dns: torch.Tensor,
+                            dms: torch.Tensor) -> list[torch.Tensor]:
+    # torch.func's vjp of the same loop, as for the mLSTM
+    def fwd(*a):
+        return _slstm_steps(a[:4], a[4:8], a[8:])
+
+    _, vjp = torch.func.vjp(fwd, wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m)
+    return list(vjp((dhs, dcs, dns, dms)))
+
+
+@_slstm_scan_backward_op.register_fake
+def _(wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m, dhs, dcs, dns, dms):
+    return [torch.empty_like(t) for t in (wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m)]
+
+
+def _slstm_scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _slstm_scan_grad(ctx, dhs, dcs, dns, dms):
+    saved = ctx.saved_tensors
+    grads = [torch.zeros_like(saved[0]) if g is None else g for g in (dhs, dcs, dns, dms)]
+    return tuple(torch.ops.repro_torch.slstm_scan_backward(*saved, *grads))
+
+
+torch.library.register_autograd("repro_torch::slstm_scan", _slstm_scan_grad,
+                                setup_context=_slstm_scan_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan)
+def _slstm_scan_flops(wz_shape, *args, out_shape=None, **kwargs) -> int:
+    B, S, H, dh = wz_shape
+    return 4 * 2 * B * S * H * dh * dh            # the recurrent products
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)
+def _slstm_scan_backward_flops(wz_shape, *args, out_shape=None, **kwargs) -> int:
+    # the forward again, and the gradient of each product (two of its size)
+    return 3 * _slstm_scan_flops(wz_shape)
+
+
+def slstm_scan(wx, R, state):
+    """:func:`_slstm_steps` as one op (``torch.ops.repro_torch.slstm_scan``),
+    with torch.func's vjp of the same loop as its gradient: a traced step
+    (:mod:`repro_torch.launch.dryrun`) records the whole loop as one node
+    with the FLOPs of its products, where the steps one by one would be
+    thousands of nodes a layer.  On DTensors it runs per rank on its batch
+    rows and heads: the recurrence is independent across both, and each
+    rank's gradient of the recurrent weights is a partial sum over the ranks
+    that split the batch."""
+    if sharding.is_dtensor(wx[0]):
+        xp = sharding.act_placements(wx[0], "batch", "seq", "lstm_heads", None)
+        wp = sharding.follow(xp, {0: 0, 2: 2})
+        rp = sharding.follow(xp, {2: 0})
+        sp = sharding.follow(xp, {0: 0, 2: 1})
+        r_grad = sharding.grad_placements(xp, {2: 0}, {0})
+        # a zero state made on the fly is the same on every rank
+        state = tuple(sharding.replicated(t, wx[0].device_mesh) for t in state)
+        return sharding.local_map(
+            lambda *a: slstm_scan(a[:4], a[4:8], a[8:]), (wp,) * 4,
+            (wp,) * 4 + (rp,) * 4 + (sp,) * 4, wx[0].device_mesh,
+            in_grad_placements=(None,) * 4 + (r_grad,) * 4 + (None,) * 4)(*wx, *R, *state)
+    return torch.ops.repro_torch.slstm_scan(*wx, *R, *state)
+
+
+def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple):
+    """The sLSTM over time in f32 (:func:`slstm_scan`).  x [B,S,D]; state
+    (h, c, n, m) each [B,H,dh] f32.  Returns (h [B,S,D] in x's dtype, final
+    state)."""
+    H, dh = slstm_dims(cfg)
+    f32 = torch.float32
+    wx = tuple(attn._split_heads(L.apply_dense({"w": params[f"w_{g}"], "b": params[f"b_{g}"]},
+                                               x), H, dh).to(f32) for g in GATES)
+    R = tuple(params[f"r_{g}"].to(f32) for g in GATES)
+    stacks = slstm_scan(wx, R, tuple(s.to(f32) for s in state))
+    final = tuple(st[:, -1] for st in stacks)
+    return attn._merge_heads(stacks[0]).to(x.dtype), final
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device):
@@ -370,7 +569,15 @@ def apply_slstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     y = L.apply_norm(params["norm"], x, cfg.norm_type, cfg.norm_eps)
     state = cache["state"] if cache is not None else init_slstm_state(cfg, x.shape[0], x.device)
     h, final = slstm_cell(params, cfg, y, state)
-    x = x + h * params["head_norm"].to(x.dtype)
-    y = L.apply_norm(params["ffn_norm"], x, cfg.norm_type, cfg.norm_eps)
+    # the residual's partial sum reduced first: the add would otherwise turn
+    # the scaled h, sharded along "lstm_inner", into a partial sum, which
+    # some DTensor versions cannot (torch 2.11, xlstm-1.3b long_500k)
+    x = sharding.reduce_partial(x) + h * params["head_norm"].to(x.dtype)
+    # the FFN's input in its rules' placement: DTensor carries the sum above
+    # in with the sequence split over "model" (a reduce-scatter of the
+    # residual's partial sum), and the products' gradient, computed on the
+    # flattened rows, cannot be unflattened where the batch does not divide
+    y = shard(L.apply_norm(params["ffn_norm"], x, cfg.norm_type, cfg.norm_eps),
+              "batch", "seq", "embed")
     x = x + L.apply_mlp(params["ffn"], y, "swiglu")
     return x, ({"state": final} if (cache is not None or return_cache) else None)

@@ -247,18 +247,21 @@ def _prune_spec_for_shape(spec: Spec, shape: tuple[int, ...]) -> Spec:
     return tuple(parts)
 
 
-def placements(spec: Spec, mesh) -> tuple:
+def placements(spec: Spec, mesh, shape: tuple[int, ...] | None = None) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: a target on tensor dim
     ``d`` puts ``Shard(d)`` on each of its mesh dims (a tuple target such as
     ``("pod", "data")`` on both, nested in the tuple's order, which is the
     order DTensor's left-to-right placements give); every mesh dim that
-    nothing targets gets ``Replicate()``."""
+    nothing targets gets ``Replicate()``.  Given the tensor's ``shape``, a
+    dim of size 1 stays ``Replicate()``: the spec can only put mesh axes of
+    size 1 there, the same layout, and DTensor refuses to view a sharded
+    dim of size 1 away (a [1, T, D] @ [D, E] on a data axis of 1)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = tuple(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for d, target in enumerate(spec):
-        if target is None:
+        if target is None or (shape is not None and shape[d] == 1):
             continue
         for t in (target if isinstance(target, tuple) else (target,)):
             i = names.index(t)
@@ -274,7 +277,7 @@ def act_placements(x: torch.Tensor, *axes: str | None) -> tuple:
     rules = _ACTIVE.acts or ACT_RULES
     mesh = x.device_mesh
     spec = assign_spec(axes, tuple(x.shape), rules, mesh_axis_sizes(mesh))
-    return placements(spec, mesh)
+    return placements(spec, mesh, tuple(x.shape))
 
 
 def follow(src: tuple, dims: dict[int, int]) -> tuple:
@@ -323,7 +326,7 @@ def shard(x: torch.Tensor, *logical_axes: str | None) -> torch.Tensor:
         return x
     mesh = x.device_mesh
     spec = assign_spec(logical_axes, tuple(x.shape), rules, mesh_axis_sizes(mesh))
-    target = placements(spec, mesh)
+    target = placements(spec, mesh, tuple(x.shape))
     if tuple(x.placements) == target:
         return x
     return x.redistribute(mesh, target)
@@ -340,7 +343,8 @@ def distribute_input(x: torch.Tensor, *logical_axes: str | None) -> torch.Tensor
     from torch.distributed.tensor import distribute_tensor
 
     spec = assign_spec(logical_axes, tuple(x.shape), rules, mesh_axis_sizes(mesh))
-    return distribute_tensor(x, mesh, placements(spec, mesh), src_data_rank=None)
+    return distribute_tensor(x, mesh, placements(spec, mesh, tuple(x.shape)),
+                             src_data_rank=None)
 
 
 def unshard_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
@@ -360,20 +364,39 @@ def unshard_dims(x: torch.Tensor, *dims: int) -> torch.Tensor:
 
 def reduce_partial(x: torch.Tensor) -> torch.Tensor:
     """``x`` with its partial sums reduced (``Partial`` made ``Replicate``,
-    its other placements kept), and its gradient reduced the same way: for
-    an op that reads whole rows, such as a norm.  DTensor carries a partial
-    sum through ops linear in it (a row product's output, a residual add, a
-    scale), and where it meets a column-sharded weight it gathers the weight
-    rather than reduce the activation, so every rank would run that product
-    whole.  The gradient of a replicated input comes back from the column
-    products as partial sums, with the same effect on the backward products
-    behind it.  With both reduced here the products per rank are the
-    reference's (``tests/test_torch_dryrun.py``, (j))."""
+    its other placements kept), and its gradient reduced the same way.
+    DTensor carries a partial sum through ops linear in it (a row product's
+    output, a residual add, a scale), and where it meets a column-sharded
+    weight it gathers the weight rather than reduce the activation, so every
+    rank would run that product whole; the gradient of a replicated input
+    comes back from the column products as partial sums, with the same
+    effect on the backward products behind it.  Some DTensor versions also
+    cannot add a shard to a partial sum (torch 2.11): reduce the partial
+    operand of such an add first."""
+    return _replicated_where(x, lambda p: p.is_partial())
+
+
+def whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """:func:`reduce_partial`, and the last dim whole on every rank as well:
+    for an op that reads whole rows, such as a norm.  A row may arrive split
+    over a mesh axis (xLSTM's residual stream, scaled by a gain sharded along
+    ``"lstm_inner"``); a mean over the split dim is ``Partial("avg")``, which
+    flows on into the products behind the norm and whose gradient, a partial
+    sum, DTensor cannot turn back into an average.  With both done here the
+    products per rank are the reference's (``tests/test_torch_dryrun.py``,
+    (j))."""
+    last = x.ndim - 1
+    return _replicated_where(x, lambda p: p.is_partial() or p.is_shard(last))
+
+
+def _replicated_where(x: torch.Tensor, pick) -> torch.Tensor:
+    """``x`` with each placement ``pick`` selects made ``Replicate``, and its
+    gradient brought back to those placements."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
 
-    target = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    target = tuple(Replicate() if pick(p) else p for p in x.placements)
     if target != tuple(x.placements):
         x = x.redistribute(x.device_mesh, target)
     return grad_as_forward(x)

@@ -8,9 +8,11 @@ timeout (``TIMEOUT``, killed then), so none can hang the suite.  The
 reference for each check is the single-process port (whose own tests hold it
 to the JAX package):
 
-* 2 training steps of SMOKE internlm2, mixtral and zamba2 through
-  ``TrainingFabric(mesh=(2, 2))`` against the unsharded fabric on the same
-  weights and batches: the loss at rtol = atol = 1e-5, the updated params at
+* 2 training steps of SMOKE internlm2, mixtral, zamba2 and xlstm through
+  ``TrainingFabric(mesh=(2, 2))``, and of internlm2, mixtral with 2 experts
+  and xlstm on (1, 4), against the unsharded fabric on the same weights and
+  batches (with 2 experts, layer 0's ``apply_moe(use_gmm=True)`` on the
+  mesh too, against whole tensors): the loss at rtol = atol = 1e-5, the updated params at
   atol 2 lr(step 0) + rtol 1e-4 (after one Adam step the sign of a near-zero
   gradient is a whole +-lr, as in ``tests/test_torch_train.py``);
 * the gradients' placements after the step's redistribution equal the
@@ -20,6 +22,10 @@ to the JAX package):
   unsharded prefill, and one decode step after it; the kernels' entry points
   (``mamba_scan``, ``moe_expert_mlp``, ``gmm``) on DTensors against whole
   tensors;
+* SMOKE whisper-medium's prefill under ``"flash"`` (its encoder
+  non-causal) on (2, 2), on (1, 4) and, with 2 heads that do not divide
+  the model axis, on (1, 4), against unsharded prefill: the logits, the
+  self and cross caches, and one decode step after it;
 * a checkpoint saved (asynchronously) on (2, 2), restored onto (1, 2) and
   onto no mesh, bit-equal;
 * ``python -m repro_torch.launch.elastic --device cpu`` ending SUCCEEDED at
@@ -45,7 +51,7 @@ import torch.multiprocessing as mp  # noqa: E402
 TIMEOUT = 120  # seconds, each multi-process test's join timeout
 WORLD = 4
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
-ARCHS = ("internlm2-1.8b", "mixtral-8x7b", "zamba2-7b")
+ARCHS = ("internlm2-1.8b", "mixtral-8x7b", "zamba2-7b", "xlstm-1.3b")
 
 
 # --- the harness --------------------------------------------------------------
@@ -113,21 +119,30 @@ def _train_cfg():
     return TrainConfig(total_steps=10, warmup_steps=2, learning_rate=1e-3)
 
 
-def _fabric(arch, tmp, mesh, name):
+def _fabric(arch, tmp, mesh, name, n_experts=None):
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.train.fabric import TrainingFabric
 
     cfg = configs.get(arch, smoke=True).replace(compute_dtype="float32")
+    if n_experts is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=n_experts))
     return TrainingFabric(cfg, _train_cfg(), batch=4, seq_len=16,
                           ckpt_dir=os.path.join(tmp, name), device="cpu", mesh=mesh)
 
 
-def _train_worker(rank, tmp, arch, shape=(2, 2)):
-    """2 steps on ``shape`` from redrawn weights; rank 0 also runs them unsharded."""
+def _train_worker(rank, tmp, arch, shape=(2, 2), n_experts=None):
+    """2 steps on ``shape`` from redrawn weights; rank 0 also runs them
+    unsharded.  An MoE config also runs layer 0's ``apply_moe(use_gmm=True)``
+    on the mesh against whole tensors, and reports where the rules put the
+    expert FFN's hidden ``h`` [G,E,C,F] and the xLSTM's heads."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
     from repro_torch.parallel import sharding as sh
     from repro_torch.testing import redraw_params_
     from repro_torch.train import loop
@@ -135,10 +150,10 @@ def _train_worker(rank, tmp, arch, shape=(2, 2)):
     from repro_torch.train.optimizer import init_adamw
 
     mesh = make_mesh(shape, ("data", "model"), "cpu")
-    plain = _fabric(arch, tmp, None, f"plain{rank}")
+    plain = _fabric(arch, tmp, None, f"plain{rank}", n_experts)
     redraw_params_(plain.state.params, 7)
     full = L.map_tree(torch.clone, plain.state.params)
-    fabric = _fabric(arch, tmp, mesh, "sharded")
+    fabric = _fabric(arch, tmp, mesh, "sharded", n_experts)
     p_sh = fabric._shardings()[0]
     params = sh.distribute_tree(full, p_sh)
     fabric.state = TrainState(params, init_adamw(params))
@@ -155,6 +170,25 @@ def _train_worker(rank, tmp, arch, shape=(2, 2)):
         isinstance(g, DTensor) and g.placements == p.placements == s.placements
         for g, p, s in zip(flat(placed), flat(params), flat(p_sh)))
     raw_differ = sum(g.placements != p.placements for g, p in zip(flat(grads), flat(params)))
+    cfg = fabric.model.cfg
+    sizes = sh.mesh_axis_sizes(mesh)
+    specs = {"lstm_heads": sh.assign_spec(("lstm_heads",), (cfg.n_heads,), sh.ACT_RULES, sizes)}
+    gmm = None
+    if cfg.moe is not None:
+        E, F_ = cfg.moe.n_experts, cfg.moe.d_ff
+        specs["h"] = sh.assign_spec(("batch", "experts", "expert_capacity", "mlp"),
+                                    (4, E, 8, F_), sh.ACT_RULES, sizes)
+        x = torch.randn(4, 16, cfg.d_model, generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            want, want_aux = moe.apply_moe(tfm.layer_params(full["blocks"], 0)["moe"], cfg, x,
+                                           use_gmm=True)
+            with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+                got, aux = moe.apply_moe(tfm.layer_params(params["blocks"], 0)["moe"], cfg,
+                                         sh.distribute_input(x, "batch", "seq", "embed"),
+                                         use_gmm=True)
+                got, aux = got.full_tensor(), sh.full_tensor(aux)
+        gmm = {"out": float((got - want).abs().max()), "scale": float(want.abs().max()),
+               "aux": float((aux - want_aux).abs())}
 
     records = [fabric.train_steps(1) for _ in range(2)]
     got = [x.full_tensor().numpy() for x in flat(fabric.state.params)]
@@ -163,7 +197,7 @@ def _train_worker(rank, tmp, arch, shape=(2, 2)):
            "m_placements_match": all(m.placements == p.placements for m, p in
                                      zip(flat(fabric.state.opt.m), flat(fabric.state.params))),
            "grad_placements_match": grad_placements_match, "raw_differ": raw_differ,
-           "n_leaves": len(got)}
+           "n_leaves": len(got), "specs": specs, "gmm": gmm}
     if rank == 0:
         want_records = [plain.train_steps(1) for _ in range(2)]
         want = [x.numpy() for x in flat(plain.state.params)]
@@ -214,6 +248,54 @@ def _prefill_worker(rank, tmp):
             "scale": float(want.abs().max()),
             "cache": float((got_k - cache["k"]).abs().max()),
             "decode": float((dec - want_dec).abs().max())}
+
+
+def _whisper_prefill_worker(rank, tmp):
+    """Flash prefill and one decode step of SMOKE whisper-medium on (2, 2),
+    on (1, 4) and, with 2 heads, on (1, 4): max |difference| from unsharded."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model, param_axes, param_shapes
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.testing import redraw_params_
+
+    out = {}
+    smoke = configs.get("whisper-medium", smoke=True).replace(
+        compute_dtype="float32", attention_impl="flash")
+    cases = {"2x2": ((2, 2), smoke), "1x4": ((1, 4), smoke),
+             "1x4-2heads": ((1, 4), smoke.replace(n_heads=2, n_kv_heads=2))}
+    for name, (shape, cfg) in cases.items():
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        model = Model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        redraw_params_(params, 3)
+        gen = torch.Generator().manual_seed(1)
+        frames = torch.randn(2, 24, cfg.d_model, generator=gen)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+        nxt = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+        with torch.inference_mode():
+            want, cache = model.prefill(params, {"frames": frames, "tokens": tokens}, None)
+            cache_before = {part: {kv: t.clone() for kv, t in c.items()}
+                            for part, c in cache.items()}
+            want_dec, _ = model.decode_step(params, nxt, cache, 8)  # writes the cache
+            dparams = sh.distribute_tree(params, sh.param_shardings(
+                param_axes(cfg), mesh, sh.PARAM_RULES, param_shapes(cfg)))
+            with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+                batch = {"frames": sh.distribute_input(frames, "batch", "seq", "embed"),
+                         "tokens": sh.distribute_input(tokens, "batch", "seq")}
+                got, dcache = model.prefill(dparams, batch, None)
+                caches = {f"{part}_{kv}": float((dcache[part][kv].full_tensor()
+                                                 - cache_before[part][kv]).abs().max())
+                          for part in ("self", "cross_kv") for kv in ("k", "v")}
+                placed = all(sh.is_dtensor(t) for part in dcache.values() for t in part.values())
+                dec, _ = model.decode_step(dparams, sh.distribute_input(nxt, "batch", "seq"),
+                                           dcache, 8)
+                got, dec = got.full_tensor(), dec.full_tensor()
+        out[name] = {"heads": cfg.n_heads, "placed": placed, "caches": caches,
+                     "logits": float((got - want).abs().max()),
+                     "scale": float(want.abs().max()),
+                     "decode": float((dec - want_dec).abs().max())}
+    return out
 
 
 def _entry_points_on(mesh) -> dict:
@@ -282,20 +364,37 @@ def _checkpoint_worker(rank, tmp):
 _TRAIN: dict = {}
 
 
-def _trained(arch, tmp_path, shape=(2, 2)):
-    if (arch, shape) not in _TRAIN:
-        _TRAIN[arch, shape] = run_ranks(tmp_path, _train_worker, arch=arch, shape=shape)
-    return _TRAIN[arch, shape]
+def _trained(arch, tmp_path, shape=(2, 2), n_experts=None):
+    key = (arch, shape, n_experts)
+    if key not in _TRAIN:
+        _TRAIN[key] = run_ranks(tmp_path, _train_worker, arch=arch, shape=shape,
+                                n_experts=n_experts)
+    return _TRAIN[key]
 
 
-@pytest.mark.parametrize("arch,shape", [(arch, (2, 2)) for arch in ARCHS]
-                         + [("internlm2-1.8b", (1, 4))],
-                         ids=[f"{arch}-2x2" for arch in ARCHS] + ["internlm2-1.8b-1x4"])
-def test_sharded_training_matches_single_process(arch, shape, tmp_path):
+@pytest.mark.parametrize(
+    "arch,shape,n_experts",
+    [(arch, (2, 2), None) for arch in ARCHS]
+    + [("internlm2-1.8b", (1, 4), None), ("mixtral-8x7b", (1, 4), 2), ("xlstm-1.3b", (1, 4), None)],
+    ids=[f"{arch}-2x2" for arch in ARCHS]
+    + ["internlm2-1.8b-1x4", "mixtral-8x7b-2experts-1x4", "xlstm-1.3b-1x4"])
+def test_sharded_training_matches_single_process(arch, shape, n_experts, tmp_path):
     """(1, 4) puts SMOKE internlm2's 2 kv heads on a model axis of 4: they
-    stay whole on every rank, and their gradient is a partial sum."""
-    results = _trained(arch, tmp_path, shape)
+    stay whole on every rank, and their gradient is a partial sum.  Mixtral
+    with 2 experts on 4 model ranks (the geometry of 8 experts on 16) splits
+    the expert FFN's hidden dim over "model" (ROADMAP F8): each rank's
+    output, and the gradients of its input, dispatch and combine, are
+    partial sums over those ranks, and ``apply_moe(use_gmm=True)`` on the
+    mesh matches whole tensors.  SMOKE xlstm's 2 heads on 4 model ranks
+    stay whole on every rank (ROADMAP F9)."""
+    results = _trained(arch, tmp_path, shape, n_experts)
     lead = results[0]
+    if n_experts is not None:
+        assert lead["specs"]["h"] == ("data", None, None, "model"), lead["specs"]
+        gmm = lead["gmm"]
+        assert gmm["out"] <= 1e-5 * max(1.0, gmm["scale"]) and gmm["aux"] <= 1e-5, gmm
+    if arch == "xlstm-1.3b" and shape == (1, 4):
+        assert lead["specs"]["lstm_heads"] == (), lead["specs"]
     np.testing.assert_allclose(lead["losses"], lead["want_losses"], **LOSS_TOL)
     np.testing.assert_allclose(lead["grad_norms"], lead["want_grad_norms"], rtol=1e-4)
     assert lead["param_excess"] <= 0.0, lead["param_excess"]
@@ -320,6 +419,21 @@ def test_flash_prefill_gqa_replicated_kv_matches_unsharded(tmp_path):
         assert r["cache"] <= 1e-5, r
         assert r["decode"] <= 1e-5 * max(1.0, r["scale"]), r
         assert max(r["entry"].values()) <= 1e-5, r["entry"]
+
+
+def test_whisper_flash_prefill_matches_unsharded(tmp_path):
+    """Whisper's caches are placed on the mesh (a ``copy_`` of a DTensor
+    into a plain cache raised, ROADMAP F7); at the file's tolerances, with
+    its 4 heads split over 2 and 4 model ranks and 2 heads on 4 gathered."""
+    results = run_ranks(tmp_path, _whisper_prefill_worker)
+    for r in results:
+        assert set(r) == {"2x2", "1x4", "1x4-2heads"}
+        for name, c in r.items():
+            assert c["heads"] == (2 if name.endswith("2heads") else 4)
+            assert c["placed"], name
+            assert c["logits"] <= 1e-5 * max(1.0, c["scale"]), (name, c)
+            assert max(c["caches"].values()) <= 1e-5, (name, c)
+            assert c["decode"] <= 1e-5 * max(1.0, c["scale"]), (name, c)
 
 
 def test_checkpoint_restores_onto_a_smaller_mesh_and_no_mesh(tmp_path):

@@ -211,6 +211,20 @@ def test_spec_to_placements(spec, names, want):
         assert sh.placements(spec, mesh) == want
 
 
+@pytest.mark.parametrize("shape,want", [
+    ((1, 64, 8), (Replicate(), Shard(1))),
+    ((2, 64, 8), (Shard(0), Shard(1))),
+    ((1, 1, 8), (Replicate(), Replicate())),
+])
+def test_placements_leave_a_dim_of_size_one_replicated(shape, want):
+    """Given the tensor's shape, a dim of size 1 (which the spec can only
+    give mesh axes of size 1) stays Replicate: DTensor refuses to view a
+    sharded dim of size 1 away (ROADMAP F10).  The spec is not changed."""
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"))
+    assert sh.placements(("data", "model"), mesh, shape) == want
+    assert sh.placements(("data", "model"), mesh) == (Shard(0), Shard(1))
+
+
 def test_placements_refuse_a_mesh_axis_twice():
     with pytest.raises(ValueError):
         sh.placements(("data", "data"), SimpleNamespace(mesh_dim_names=("data",)))

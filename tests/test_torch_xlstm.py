@@ -7,6 +7,10 @@ bridge; the regression pins of ``tests/models/test_xlstm_regression.py`` use
 the reference's own init, bridged, as the pins do.  Inputs are seeded numpy.
 Tolerances are the reference's: the cells in f32 at rtol = atol = 2e-5,
 logits at the end of the stack at 1e-4, one bf16 block at 2e-2 (relative L2).
+The two loops are ops (``repro_torch::mlstm_chunkwise``, ``::slstm_scan``):
+the sLSTM op's backward (torch.func's vjp of its loop) is held against
+autograd through its step loop at 2e-5 and against ``jax.grad`` at 1e-4, and both ops' FLOP formulas
+equal the products their loops count, exactly.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_xlstm.py
 """
@@ -493,3 +497,124 @@ def test_bridge_round_trips_xlstm_bitwise():
     for (jp, j), (bp, b) in zip(jleaves, bleaves):
         assert jp == bp and b.dtype == j.dtype
         np.testing.assert_array_equal(b, np.asarray(j))
+
+
+# ---------------------------------------------------------------------------
+# the two loops as ops: gradient and FLOPs
+# ---------------------------------------------------------------------------
+
+
+def _slstm_inputs(seed, Bsz=2, S_=9, H=2, dh=8, given_state=False):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    wx = tuple(f(Bsz, S_, H, dh) for _ in range(4))
+    R = tuple(0.5 * f(H, dh, dh) for _ in range(4))
+    if given_state:
+        state = (f(Bsz, H, dh), f(Bsz, H, dh), f(Bsz, H, dh).abs() + 0.5, f(Bsz, H, dh))
+    else:
+        zero = torch.zeros(Bsz, H, dh)
+        state = (zero, zero, zero, torch.full((Bsz, H, dh), -torch.inf))
+    return wx, R, state
+
+
+@pytest.mark.parametrize("given_state", [False, True])
+def test_slstm_scan_gradient_equals_autograd_through_the_steps(given_state):
+    """rtol = atol = 2e-5: the op's backward (torch.func's vjp of the loop,
+    inside the op) against autograd through :func:`xlstm._slstm_steps`, for an upstream
+    gradient on all four stacked outputs, from the zero state (n = 1 ties
+    torch.maximum at the first step, m = -inf) and from a given one."""
+    wx, R, state = _slstm_inputs(11, given_state=given_state)
+    leaves = [t.clone().requires_grad_() for t in (*wx, *R, *state)]
+    gen = torch.Generator().manual_seed(2)
+    ups = [torch.randn(wx[0].shape, generator=gen) for _ in range(4)]
+
+    def grads(fn):
+        outs = fn(tuple(leaves[:4]), tuple(leaves[4:8]), tuple(leaves[8:]))
+        return torch.autograd.grad(outs, leaves, ups, allow_unused=True, materialize_grads=True)
+
+    got = grads(lambda wx, R, st: torch.ops.repro_torch.slstm_scan(*wx, *R, *st))
+    want = grads(xlstm._slstm_steps)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, **CELL)
+
+
+def test_slstm_cell_gradient_matches_jax():
+    """rtol = atol = 1e-4: the gradient of a weighted sum of the sLSTM's
+    outputs (h over time and the final state) with respect to the input,
+    the gate weights and the given state, the port's op against
+    ``jax.grad`` through the reference's ``lax.scan``."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _slstm_params(tcfg)
+    H, dh = xlstm.slstm_dims(tcfg)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((B, S, tcfg.d_model)).astype(np.float32)
+    state = tuple(rng.standard_normal((B, H, dh)).astype(np.float32) for _ in range(4))
+    wh = rng.standard_normal((B, S, tcfg.d_model)).astype(np.float32)
+    ws = tuple(rng.standard_normal((B, H, dh)).astype(np.float32) for _ in range(4))
+    names = ("w_z", "r_i", "b_f")
+
+    def jloss(sub, x, st):
+        p = {**jp, **sub}
+        h, final = jax_xlstm.slstm_cell(p, jcfg, x, st)
+        return jnp.sum(h * wh) + sum(jnp.sum(f * w) for f, w in zip(final, ws))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))({k: jp[k] for k in names}, jnp.asarray(x),
+                                            tuple(jnp.asarray(s) for s in state))
+    sub = {k: tp[k].clone().requires_grad_() for k in names}
+    tx = torch.from_numpy(x).requires_grad_()
+    tst = tuple(torch.from_numpy(s).requires_grad_() for s in state)
+    h, final = xlstm.slstm_cell({**tp, **sub}, tcfg, tx, tst)
+    loss = (h * torch.from_numpy(wh)).sum() + sum((f * torch.from_numpy(w)).sum()
+                                                  for f, w in zip(final, ws))
+    tg = torch.autograd.grad(loss, [*sub.values(), tx, *tst])
+    want = [jg[0][k] for k in names] + [jg[1], *jg[2]]
+    for g, w in zip(tg, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+def test_loop_ops_count_the_products_of_their_loops():
+    """Exact: ``FlopCounterMode`` counts each op by its formula, and the
+    formula is what the plain loop's products count, forward and backward
+    (each backward by torch.func's vjp, which runs the loop again)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def count(fn, *a):
+        with FlopCounterMode(display=False) as counter:
+            out = fn(*a)
+        return counter.get_total_flops(), out
+
+    q, k, v, i, f = (torch.from_numpy(a) for a in _mlstm_inputs(37))
+    st = xlstm.initial_mlstm_state(2, 2, 8, 16, "cpu")
+
+    def fwd(*a):
+        h, final = xlstm._mlstm_chunks(*a[:5], 16, a[5:])
+        return (h, *final)
+
+    plain, outs = count(fwd, q, k, v, i, f, *st)
+    assert count(torch.ops.repro_torch.mlstm_chunkwise, q, k, v, i, f, *st, 16)[0] == plain
+
+    def fwd_bwd():
+        outs, vjp = torch.func.vjp(fwd, q, k, v, i, f, *st)
+        return vjp(tuple(torch.ones_like(o) for o in outs))
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        back = count(torch.ops.repro_torch.mlstm_chunkwise_backward, q, k, v, i, f, *st, 16,
+                     *(torch.ones_like(o) for o in outs))[0]
+    assert back == count(fwd_bwd)[0] == 3 * plain
+
+    wx, R, state = _slstm_inputs(12)
+    plain, stacks = count(xlstm._slstm_steps, wx, R, state)
+    assert count(torch.ops.repro_torch.slstm_scan, *wx, *R, *state)[0] == plain
+    ups = tuple(torch.ones_like(s) for s in stacks)
+
+    def steps_bwd():
+        _, vjp = torch.func.vjp(lambda *a: xlstm._slstm_steps(a[:4], a[4:8], a[8:]),
+                                *wx, *R, *state)
+        return vjp(ups)
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        back = count(torch.ops.repro_torch.slstm_scan_backward, *wx, *R, *state, *ups)[0]
+    assert back == count(steps_bwd)[0] == 3 * plain
