@@ -92,9 +92,14 @@ Phases, each of which raises on failure (a non-zero exit):
               no kernel launch): internlm2-1.8b train_4k, mixtral-8x7b
               prefill_32k, zamba2-7b long_500k on the 512-rank mesh and
               internlm2-1.8b prefill_32k through the flash kernel's custom op
-              (one traced call a layer), xlstm-1.3b train_4k and
-              whisper-medium prefill_32k must end ok, each with its roofline
-              row; then phase 10's step traced on a (1, 1) world, whose
+              (one traced call a layer), xlstm-1.3b train_4k,
+              whisper-medium prefill_32k, mixtral-8x7b decode_32k and
+              xlstm-1.3b decode_32k must end ok, each with its roofline row,
+              and the xLSTM cells and mixtral's decode under a ceiling of
+              FLOPs a card (``DRYRUN_FLOP_CEILINGS``); each xLSTM cell is
+              traced again with each head whole on its model ranks, and its
+              wire bytes a card may exceed neither that trace's nor, for
+              train_4k, ``DRYRUN_WIRE_CEILINGS``; then phase 10's step traced on a (1, 1) world, whose
               compute term may not exceed phase 10's measured median step.
 
 The last seven lines of standard output are the xLSTM, training, shard and
@@ -545,7 +550,8 @@ GMM_TIMED = [
 # the bf16 cases that take the TMA + wgmma route: every model shape, and the
 # aligned cases whose ragged C and F exercise TMA's zero fill
 GMM_TMA_CASES = ("mixtral_eval_gate", "mixtral_eval_down", "mixtral_decode", "qwen3_layer",
-                 "serve_ragged", "c37_d96_f72", "e5_ew3")
+                 "serve_ragged", "c37_d96_f72", "e5_ew3", "mixtral_decode_split_gate",
+                 "mixtral_decode_split_down")
 GMM_EDGE_CASES = [
     ("mixtral_eval_gate_f32", "float32", 16, 640, 4096, 14336, 8),
     # a serving prefill batch of 8 x 501 tokens: one group, C 1256 (ragged)
@@ -560,6 +566,12 @@ GMM_EDGE_CASES = [
     ("e5_ew3", "bfloat16", 5, 37, 96, 72, 3),
     ("e1", "bfloat16", 1, 37, 100, 72, 1),
     ("e1_f32", "float32", 1, 37, 100, 72, 1),
+    # mixtral-8x7b decode_32k on (16, 16) with use_gmm: the one routing group
+    # of 128 tokens (C 40) split over 16 data ranks (moe._experts_split),
+    # gate and up on a rank's 256 of the embed dim and 896 hidden columns,
+    # down back to its 256
+    ("mixtral_decode_split_gate", "bfloat16", 8, 40, 256, 896, 8),
+    ("mixtral_decode_split_down", "bfloat16", 8, 40, 896, 256, 8),
 ]
 
 
@@ -2024,8 +2036,12 @@ def shard() -> dict:
 # (arch, shape, mesh, cfg_override): a training cell on 256 ranks, an MoE
 # prefill, the long-context decode whose cache shards its sequence over the
 # 512-rank mesh's ("pod", "data"), a prefill traced through the flash
-# kernel's custom op, xLSTM's training (its loops as single ops, ROADMAP F6)
-# and whisper's prefill (its caches on the mesh, F7)
+# kernel's custom op, xLSTM's training (its loops as single ops, ROADMAP F6;
+# its 4 heads' value dims split over 16 model ranks, F9; its loops' backward
+# from saved residuals, F13), whisper's prefill (its caches on the mesh,
+# F7), mixtral's decode (its 128 tokens one routing group, whose expert work
+# the data ranks split, F11) and xLSTM's decode (its value projection on a
+# data rank's rows, F12)
 DRYRUN_CELLS = (
     ("internlm2-1.8b", "train_4k", "single", None),
     ("mixtral-8x7b", "prefill_32k", "single", None),
@@ -2033,7 +2049,24 @@ DRYRUN_CELLS = (
     ("internlm2-1.8b", "prefill_32k", "single", {"attention_impl": "flash"}),
     ("xlstm-1.3b", "train_4k", "single", None),
     ("whisper-medium", "prefill_32k", "single", None),
+    ("mixtral-8x7b", "decode_32k", "single", None),
+    ("xlstm-1.3b", "decode_32k", "single", None),
 )
+# FLOPs a card that a cell may not exceed: the work the port repeated on a
+# mesh before F9, F11 and F12 (3.054e14, 2.570e11 and 4.998e10), with the
+# reference's split, is a few times less
+DRYRUN_FLOP_CEILINGS = {
+    "xlstm-1.3b__train_4k__single": 1.5e14,
+    "mixtral-8x7b__decode_32k__single": 1e11,
+    "xlstm-1.3b__decode_32k__single": 1e10,
+}
+# wire bytes a card that a cell may not exceed: xlstm-1.3b train_4k's with
+# each head whole on every model rank, as before F9, which F9's value split
+# may not raise.  Every xLSTM cell is also traced with the split off (_heads_whole)
+# and may not move more bytes than that trace.
+DRYRUN_WIRE_CEILINGS = {
+    "xlstm-1.3b__train_4k__single": 250951.2 * 2 ** 20,
+}
 DRYRUN_FLASH_CELL = "internlm2-1.8b__prefill_32k__single__flash"
 # phase 10's step traced on (1, 1) against FlopCounterMode around a real step
 # on the card: the same ops by the same formulas, so equal up to float sums
@@ -2052,12 +2085,29 @@ def _dryrun_record(rec: dict, row: dict) -> dict:
             "kernel_calls": rec["kernel_calls"], **{k: row[k] for k in keep}}
 
 
+def _heads_whole(arch: str, shape: str, mesh: str) -> dict:
+    """The cell traced with xLSTM's value split off (each head whole on
+    every model rank, as before F9): its FLOPs, wire and temp bytes a card."""
+    from unittest import mock
+
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import xlstm
+
+    with mock.patch.object(xlstm, "_value_split_dim", lambda *a: None):
+        rec = dr.run_cell(arch, shape, mesh, tag="heads_whole", device="cuda")
+    check(rec["status"] == "ok", f"dry-run of {arch} x {shape} with heads whole failed:\n"
+                                 f"{rec.get('traceback')}")
+    return {"flops": rec["cost"]["flops"],
+            "wire_bytes": rec["collectives"]["_total"]["wire_bytes_per_device"],
+            "temp_bytes": rec["memory"]["temp_size_in_bytes"]}
+
+
 def dryrun(training: dict) -> dict:
     """Phase 12: repro_torch.launch.dryrun.run_cell on each of DRYRUN_CELLS,
     a fake world of 256 or 512 ranks with the mesh on "cuda" (fake tensors:
     nothing is allocated, no kernel launches), each record's summary,
     roofline row and three costliest products printed; every cell must end ok, the flash cell with one
-    flash node a layer.  Then phase 10's step (internlm2-1.8b, 8 x 512, remat
+    flash node a layer, the cells of DRYRUN_FLOP_CEILINGS under theirs.  Then phase 10's step (internlm2-1.8b, 8 x 512, remat
     "full", its TrainConfig) traced on a (1, 1) world: its FLOPs must equal
     FlopCounterMode's around one real step of phase 10 on the card (within
     DRYRUN_FLOPS_RTOL), its compute term may not exceed phase 10's measured
@@ -2080,7 +2130,30 @@ def dryrun(training: dict) -> dict:
         print("  " + roofline.markdown_table([row]).splitlines()[-1])
         for op in rec["top_flops"][:3]:
             print(f"    {op['flops']:.4e} FLOPs in {op['count']} x {op['op']} {op['shapes']}")
-        out["__".join(filter(None, (arch, shape, mesh, tag)))] = _dryrun_record(rec, row)
+        name = "__".join(filter(None, (arch, shape, mesh, tag)))
+        out[name] = _dryrun_record(rec, row)
+        if name in DRYRUN_FLOP_CEILINGS:
+            print(f"    {rec['cost']['flops']:.4e} FLOPs a card, ceiling "
+                  f"{DRYRUN_FLOP_CEILINGS[name]:.1e}")
+            check(rec["cost"]["flops"] <= DRYRUN_FLOP_CEILINGS[name],
+                  f"{name} traced {rec['cost']['flops']:.4e} FLOPs a card, over "
+                  f"{DRYRUN_FLOP_CEILINGS[name]:.1e}")
+        wire = rec["collectives"]["_total"]["wire_bytes_per_device"]
+        if name in DRYRUN_WIRE_CEILINGS:
+            print(f"    {wire / 2 ** 20:.1f} MiB on the wire a card, ceiling "
+                  f"{DRYRUN_WIRE_CEILINGS[name] / 2 ** 20:.1f}")
+            check(wire <= DRYRUN_WIRE_CEILINGS[name],
+                  f"{name} moves {wire / 2 ** 20:.1f} MiB a card, over "
+                  f"{DRYRUN_WIRE_CEILINGS[name] / 2 ** 20:.1f}")
+        if arch == "xlstm-1.3b":
+            out[name]["heads_whole"] = whole = _heads_whole(arch, shape, mesh)
+            print(f"    with each head whole on its model ranks: {whole['flops']:.4e} FLOPs, "
+                  f"{whole['wire_bytes'] / 2 ** 20:.1f} MiB on the wire, temp "
+                  f"{whole['temp_bytes'] / 2 ** 30:.2f} GiB a card (split: "
+                  f"{rec['memory']['temp_size_in_bytes'] / 2 ** 30:.2f} GiB)")
+            check(wire <= whole["wire_bytes"], f"{name}: the value split moves "
+                  f"{wire / 2 ** 20:.1f} MiB a card, more than its heads whole "
+                  f"({whole['wire_bytes'] / 2 ** 20:.1f})")
         if override:
             n_layers = configs.get(arch).n_layers
             check(rec["kernel_calls"].get("flash_attention") == n_layers,

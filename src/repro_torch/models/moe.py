@@ -9,7 +9,9 @@ over the data axes and the experts over "model".  Routing (top-k, the
 cumsum over a group's tokens, the slot scatter) has no DTensor sharding
 strategy, and the dispatch and combine einsums fold sharded dims that some
 DTensor versions cannot split: both run per rank, on its own groups (and
-experts), through ``local_map``.
+experts), through ``local_map``.  One group (at most 2048 tokens, every
+decode step) cannot take the data axes; its expert work is split over them
+as XLA splits the reference's (:func:`_experts_split`).
 
 ``use_gmm=True`` runs the expert FFN through the grouped-matmul kernel
 (:func:`repro_torch.kernels.ops.moe_expert_mlp`).  As in the reference, no
@@ -140,17 +142,28 @@ def apply_moe(
     experts = [params["experts"][name] for name in ("gate", "up", "down")]
     combine = combine.to(x.dtype)
     if sharding.is_dtensor(xg):
-        out = _experts_per_shard(cfg, use_gmm, xg, dispatch_t, combine, *experts)
+        out = _experts_per_shard(cfg, use_gmm, xg, dispatch_t, combine, *experts,
+                                 rows=B if groups == 1 else None)
     else:
         out = _experts(cfg, use_gmm, xg, dispatch_t, combine, *experts)
     return out.reshape(B, S, D), aux
 
 
+def _dispatch(dispatch_t, xg):
+    """The dispatch einsum: [G,T,E,C] x [G,T,D] -> [G,E,C,D]; E sharded over
+    "model" => all-to-all."""
+    expert_in = torch.einsum("gtec,gtd->gecd", dispatch_t, xg)
+    return shard(expert_in, "batch", "experts", "expert_capacity", "embed")
+
+
+def _combine(combine, expert_out):
+    """The weighted combine: [G,T,E,C] x [G,E,C,D] -> [G,T,D]."""
+    return torch.einsum("gtec,gecd->gtd", combine, expert_out)
+
+
 def _experts(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, w_gate, w_up, w_down):
     """Dispatch, the expert FFN and the weighted combine: [G,T,D] -> [G,T,D]."""
-    # dispatch einsum -> [G, E, C, D]; E sharded over "model" => all-to-all
-    expert_in = torch.einsum("gtec,gtd->gecd", dispatch_t, xg)
-    expert_in = shard(expert_in, "batch", "experts", "expert_capacity", "embed")
+    expert_in = _dispatch(dispatch_t, xg)
 
     if use_gmm:
         weights = {"gate": w_gate, "up": w_up, "down": w_down}
@@ -163,10 +176,11 @@ def _experts(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, w_gate, w
         expert_out = torch.einsum("gecf,efd->gecd", h, w_down)
     expert_out = shard(expert_out, "batch", "experts", None, "embed")
 
-    return torch.einsum("gtec,gecd->gtd", combine, expert_out)
+    return _combine(combine, expert_out)
 
 
-def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, *weights):
+def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, *weights,
+                       rows: int | None = None):
     """:func:`_experts` of DTensors, per rank on the slice of the expert FFN
     that the placement of its hidden ``h`` [G,E,C,F] gives it under the
     rules (``"batch", "experts", "expert_capacity", "mlp"``): its groups, and
@@ -177,11 +191,20 @@ def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine,
     of the combine, a partial sum over the ranks along the experts or the
     hidden dim; xg's and the combine weights' gradients are one there too,
     and the weights' over the ranks along the groups.  DTensor's einsums
-    would fold sharded dims into one that some versions cannot split."""
+    would fold sharded dims into one that some versions cannot split.
+
+    Where one group (at most 2048 tokens, as every decode step has) cannot
+    take a batch axis, its ranks split the work as XLA splits the
+    reference's (:func:`_experts_split`), if the embed dim and the ``rows``
+    of x the group's tokens come from divide among them."""
     G, _, E, C = dispatch_t.shape
     F_ = weights[0].shape[-1]
+    mesh = xg.device_mesh
     hp = sharding.act_placements(dispatch_t.new_empty(()).expand(G, E, C, F_),
                                  "batch", "experts", "expert_capacity", "mlp")
+    split = sharding.untaken_axes(hp, mesh, "batch", xg.shape[-1], rows) if rows else []
+    if split:
+        return _experts_split(cfg, use_gmm, hp, split, xg, dispatch_t, combine, *weights)
     dp = sharding.follow(hp, {0: 0, 1: 2})
     xp = sharding.follow(hp, {0: 0})
     w_in, w_out = sharding.follow(hp, {1: 0, 3: 2}), sharding.follow(hp, {1: 0, 3: 1})
@@ -190,7 +213,69 @@ def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine,
     in_grad, out_grad = (sharding.grad_placements(hp, {1: 0, 3: d}, {0}) for d in (2, 1))
     out = x_grad  # the output is laid out as xg's gradient is
     return sharding.local_map(functools.partial(_experts, cfg, use_gmm), out,
-                              (xp, dp, dp, w_in, w_in, w_out), xg.device_mesh,
+                              (xp, dp, dp, w_in, w_in, w_out), mesh,
                               in_grad_placements=(x_grad, d_grad, d_grad,
                                                   in_grad, in_grad, out_grad))(
         xg, dispatch_t, combine, *weights)
+
+
+def _expert_product(use_gmm: bool, x, w):
+    """[G,E,C,K] x [E,K,N] -> [G,E,C,N], through the grouped-matmul kernel
+    with ``use_gmm``."""
+    if use_gmm:
+        G, E, C, K = x.shape
+        out = kernel_ops.gmm(x.reshape(G * E, C, K).contiguous(), w.to(x.dtype))
+        return out.reshape(G, E, C, -1)
+    return torch.einsum("geck,ekn->gecn", x, w.to(x.dtype))
+
+
+def _experts_split(cfg: ModelConfig, use_gmm: bool, hp: tuple, split: list[int], xg,
+                   dispatch_t, combine, w_gate, w_up, w_down):
+    """:func:`_experts_per_shard` of one group [1,T,...] where the mesh dims
+    ``split`` would take the groups but cannot: their ranks hold every token
+    of the group, and split its work as XLA splits the reference's, in four
+    steps per rank:
+
+    * the dispatch, whole;
+    * the gate and up products on the rank's slice of the embed dim, where
+      the expert weights already are (FSDP): partial sums, reduced over
+      ``split`` before the SwiGLU;
+    * the down product on the rank's slice of the embed dim: its columns of
+      the expert outputs, gathered for
+    * the combine, of the rank's slice of the tokens.
+
+    Every token is routed on every rank (:func:`_route`), and no expert
+    weight moves along ``split``: only the hidden [G,E,C,F] is reduced and
+    the expert outputs [G,E,C,D] gathered, which at decode are far smaller
+    than the weights."""
+    from torch.distributed.tensor import Shard
+
+    # hp with the split mesh dims shown as sharding a dim of their own, 4:
+    # follow(hs, {1: a, 3: b, 4: c}) shards dim a where the experts' mesh
+    # dims are, b where the hidden dim's are, c along the split
+    hs = tuple(Shard(4) if i in split else p for i, p in enumerate(hp))
+    fol, grad = sharding.follow, sharding.grad_placements
+    mesh = xg.device_mesh
+    expert_in = sharding.local_map(
+        _dispatch, fol(hs, {1: 1}), (fol(hs, {1: 2}), fol(hs, {})), mesh,
+        in_grad_placements=(None, grad(hs, {}, {1})))(dispatch_t, xg)
+
+    w_in = fol(hs, {1: 0, 3: 2, 4: 1})
+    gate_up = sharding.local_map(
+        lambda x, wg, wu: (_expert_product(use_gmm, x, wg), _expert_product(use_gmm, x, wu)),
+        (grad(hs, {1: 1, 3: 3}, {4}),) * 2, (fol(hs, {1: 1, 4: 3}), w_in, w_in), mesh,
+        in_grad_placements=(grad(hs, {1: 1, 4: 3}, {3}), None, None))(
+        expert_in, w_gate, w_up)
+
+    def down(g, u, w):
+        return _expert_product(use_gmm, F.silu(g) * u, w)
+
+    hidden = fol(hs, {1: 1, 3: 3})
+    expert_out = sharding.local_map(
+        down, grad(hs, {1: 1, 4: 3}, {3}), (hidden, hidden, fol(hs, {1: 0, 3: 1, 4: 2})), mesh,
+        in_grad_placements=(grad(hs, {1: 1, 3: 3}, {4}),) * 2 + (None,))(*gate_up, w_down)
+
+    return sharding.local_map(
+        _combine, grad(hs, {4: 1}, {1, 3}), (fol(hs, {1: 2, 4: 1}), grad(hs, {1: 1}, {3})),
+        mesh, in_grad_placements=(grad(hs, {1: 2, 4: 1}, {3}), grad(hs, {1: 1}, {4})))(
+        combine, expert_out)

@@ -73,8 +73,10 @@ def mlstm_chunkwise(
     """h [B,H,S,V] in v's dtype (and the final (C, n, m) in f32 if asked).
 
     The chunk loop is one op, ``torch.ops.repro_torch.mlstm_chunkwise``
-    (:func:`_mlstm_chunks` on real tensors), whose gradient is autograd's
-    through the same loop, run again in the op's backward: a traced step
+    (:func:`_mlstm_chunks` on real tensors); where a gradient is needed it
+    also returns each chunk's residuals, which its backward op
+    (:func:`_mlstm_chunks_backward`) reads in place of running the
+    forward's products again, as XLA's scan saves them: a traced step
     (:mod:`repro_torch.launch.dryrun`) records the loop as one node with the
     FLOPs of its products, where its ops one by one would be hundreds of
     thousands at 32k tokens.  On DTensors it runs per rank on its batch rows
@@ -83,7 +85,10 @@ def mlstm_chunkwise(
         return _mlstm_per_shard(q, k, v, i_gate, f_gate, chunk, state, return_state)
     if state is None:
         state = initial_mlstm_state(q.shape[0], q.shape[1], q.shape[3], v.shape[3], q.device)
-    h, *final = torch.ops.repro_torch.mlstm_chunkwise(q, k, v, i_gate, f_gate, *state, chunk)
+    save = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, i_gate, f_gate, *state))
+    h, *final = torch.ops.repro_torch.mlstm_chunkwise(q, k, v, i_gate, f_gate, *state, chunk,
+                                                      save)[:4]
     return (h, tuple(final)) if return_state else h
 
 
@@ -95,12 +100,12 @@ def initial_mlstm_state(batch: int, heads: int, K: int, V: int, device):
             torch.full((batch, heads), -torch.inf, dtype=f32, device=device))
 
 
-def _mlstm_chunks(q, k, v, i_gate, f_gate, chunk: int, state: tuple):
-    """The chunkwise-parallel mLSTM of plain tensors: (h, (C, n, m))."""
-    Bsz, H, S, K = q.shape
-    V = v.shape[-1]
+def _chunked(q, k, v, i_gate, f_gate, chunk: int):
+    """The loop's inputs in f32, padded to whole chunks and cut into them:
+    (qc scaled, kc, vc [B,H,nc,Q,K|V], ic, the forget pre-activations fc, b
+    their inclusive cumulative log-sigmoid [B,H,nc,Q])."""
     f32 = torch.float32
-    orig_S = S
+    S = q.shape[2]
     if S % chunk:
         pad = chunk - S % chunk
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
@@ -108,99 +113,254 @@ def _mlstm_chunks(q, k, v, i_gate, f_gate, chunk: int, state: tuple):
         # input), f~ = +1e9 (forget gate 1.0, i.e. no decay)
         i_gate = F.pad(i_gate, (0, pad), value=-1e9)
         f_gate = F.pad(f_gate, (0, pad), value=1e9)
-        S = q.shape[2]
-    nc = S // chunk
-    scale = 1.0 / math.sqrt(K)
+    nc = q.shape[2] // chunk
 
     def chunks(x):
-        return x.reshape(x.shape[0], x.shape[1], nc, chunk, *x.shape[3:])
+        return x.reshape(x.shape[0], x.shape[1], nc, chunk, *x.shape[3:]).to(f32)
 
-    qc = chunks(q).to(f32) * scale
-    kc = chunks(k).to(f32)
-    vc = chunks(v).to(f32)
-    ic = chunks(i_gate).to(f32)                  # [B,H,nc,Q]
-    b = torch.cumsum(_logsigmoid(chunks(f_gate).to(f32)), dim=-1)  # inclusive
+    fc = chunks(f_gate)
+    return (chunks(q) * (1.0 / math.sqrt(q.shape[-1])), chunks(k), chunks(v), chunks(i_gate),
+            fc, torch.cumsum(_logsigmoid(fc), dim=-1))
+
+
+def _chunk_stabiliser(ii, bb, m0):
+    """The stabiliser m [B,H,Q] of one chunk and the terms it is the larger
+    of: (r, the cummax of r, m_inter, m_intra, m)."""
+    r = ii - bb                                          # [B,H,Q]
+    cm = torch.cummax(r, dim=-1)
+    m_inter = m0[..., None] + bb
+    m_intra = bb + cm.values
+    return r, cm, m_inter, m_intra, torch.maximum(m_inter, m_intra)
+
+
+def _intra_decay(ii, bb, m, causal):
+    """D[t,s] = exp(b_t - b_s + i_s - m_t), s <= t, else 0."""
+    expo = bb[..., :, None] - bb[..., None, :] + ii[..., None, :]
+    expo = expo.masked_fill(~causal, -torch.inf)
+    return torch.exp(expo - m[..., :, None])
+
+
+def _chunk_final(ii, bb, m0, r):
+    """What the chunk-final state needs: (r's max with its index, m_new,
+    g [B,H,Q], decay [B,H])."""
+    b_last = bb[..., -1]
+    rmax = r.max(dim=-1)
+    m_new = torch.maximum(m0 + b_last, b_last + rmax.values)         # [B,H]
+    g = torch.exp(b_last[..., None] - bb + ii - m_new[..., None])   # [B,H,Q]
+    return rmax, m_new, g, torch.exp(m0 + b_last - m_new)
+
+
+def _mlstm_chunks(q, k, v, i_gate, f_gate, chunk: int, state: tuple, saved: list | None = None):
+    """The chunkwise-parallel mLSTM of plain tensors: (h, (C, n, m)).  With
+    ``saved`` (a list), each chunk appends what its backward reads
+    (:func:`_mlstm_chunks_backward`): the state it starts from (C0, n0, m0),
+    and its products q k^T, q C0 and q n0 and its output h, in f32."""
+    Bsz, H, S, _ = q.shape
+    V = v.shape[-1]
+    qc, kc, vc, ic, _, b = _chunked(q, k, v, i_gate, f_gate, chunk)
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
-
-    C0, n0, m0 = (s.to(f32) for s in state)
+    C0, n0, m0 = (s.to(torch.float32) for s in state)
 
     hs = []
-    for c in range(nc):
+    for c in range(qc.shape[2]):
         qq, kk, vv, ii, bb = (t[:, :, c] for t in (qc, kc, vc, ic, b))
-        r = ii - bb                                          # [B,H,Q]
-        m_intra = bb + torch.cummax(r, dim=-1).values
-        m_inter = m0[..., None] + bb
-        m = torch.maximum(m_inter, m_intra)                  # [B,H,Q] stabiliser
-        # intra-chunk decay D[t,s] = exp(b_t - b_s + i_s - m_t), s <= t
-        expo = bb[..., :, None] - bb[..., None, :] + ii[..., None, :]
-        expo = expo.masked_fill(~causal, -torch.inf)
-        D = torch.exp(expo - m[..., :, None])
-        Smat = torch.einsum("bhtk,bhsk->bhts", qq, kk) * D
+        r, _, m_inter, _, m = _chunk_stabiliser(ii, bb, m0)
+        qk = torch.einsum("bhtk,bhsk->bhts", qq, kk)
+        Smat = qk * _intra_decay(ii, bb, m, causal)
         num = torch.einsum("bhts,bhsv->bhtv", Smat, vv)
         den = Smat.sum(dim=-1)                               # q~.n, intra part
         # inter-chunk contribution
         w = torch.exp(m_inter - m)                           # [B,H,Q]
-        num = num + w[..., None] * torch.einsum("bhtk,bhkv->bhtv", qq, C0)
-        den = den + w * torch.einsum("bhtk,bhk->bht", qq, n0)
+        qC = torch.einsum("bhtk,bhkv->bhtv", qq, C0)
+        qn = torch.einsum("bhtk,bhk->bht", qq, n0)
+        num = num + w[..., None] * qC
+        den = den + w * qn
         hs.append(num / _denom(den, m)[..., None])
+        if saved is not None:
+            saved.append((C0, n0, m0, qk, qC, qn, hs[-1]))
         # chunk-final state
-        b_last = bb[..., -1]
-        m_new = torch.maximum(m0 + b_last, b_last + r.max(dim=-1).values)  # [B,H]
-        g = torch.exp(b_last[..., None] - bb + ii - m_new[..., None])     # [B,H,Q]
-        decay = torch.exp(m0 + b_last - m_new)
+        _, m_new, g, decay = _chunk_final(ii, bb, m0, r)
         C0 = decay[..., None, None] * C0 + torch.einsum("bhs,bhsk,bhsv->bhkv", g, kk, vv)
         n0 = decay[..., None] * n0 + torch.einsum("bhs,bhsk->bhk", g, kk)
         m0 = m_new
 
-    h = torch.stack(hs, dim=2).reshape(Bsz, H, S, V)[:, :, :orig_S].to(v.dtype)
+    h = torch.stack(hs, dim=2).reshape(Bsz, H, -1, V)[:, :, :S].to(v.dtype)
     return h, (C0, n0, m0)
+
+
+def _max_share(a, b):
+    """The share of ``torch.maximum(a, b)``'s gradient that goes to ``a``:
+    1 where a is larger, 1/2 at a tie, 0 elsewhere (as autograd splits it)."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def _mlstm_chunks_backward(q, k, v, i_gate, f_gate, chunk: int, residuals: tuple, dh,
+                           dC, dn, dm):
+    """The gradient of :func:`_mlstm_chunks` with respect to q, k, v, the
+    gates and the initial state, through the chunks in reverse.  Each chunk
+    reads what its forward saved (``residuals``, stacked along the chunk dim
+    [B,H,nc,...]) and recomputes only elementwise terms (the decay D, the
+    stabiliser, the gates), so none of the forward's products runs again.
+    Each product's gradient is two products of its size, but q n0's in q
+    (an outer product) and the n update's (a broadcast and a row sum)."""
+    f32 = torch.float32
+    S = q.shape[2]
+    qc, kc, vc, ic, fc, b = _chunked(q, k, v, i_gate, f_gate, chunk)
+    nc = qc.shape[2]
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    pad = nc * chunk - S
+    dhc = F.pad(dh.to(f32), (0, 0, 0, pad)).reshape(*qc.shape[:4], dh.shape[-1])
+
+    dq, dk, dv, di, db = (torch.empty_like(t) for t in (qc, kc, vc, ic, b))
+    dC1, dn1, dm1 = dC.to(f32), dn.to(f32), dm.to(f32)
+    for c in reversed(range(nc)):
+        qq, kk, vv, ii, bb = (t[:, :, c] for t in (qc, kc, vc, ic, b))
+        C0, n0, m0, qk, qC, qn, h = (t[:, :, c] for t in residuals)
+        r, cm, m_inter, m_intra, m = _chunk_stabiliser(ii, bb, m0)
+        D = _intra_decay(ii, bb, m, causal)
+        Smat = qk * D
+        w = torch.exp(m_inter - m)
+        den = Smat.sum(dim=-1) + w * qn
+        floor = torch.exp(torch.clamp(-m, max=80.0))
+        rmax, m_new, g, decay = _chunk_final(ii, bb, m0, r)
+
+        # the chunk-final state: C1 = decay C0 + sum_s g_s k_s v_s^T,
+        # n1 = decay n0 + sum_s g_s k_s, m1 = max(m0 + b_last, b_last + max r)
+        ddecay = (dC1 * C0).sum(dim=(-2, -1)) + (dn1 * n0).sum(dim=-1)
+        dgk = torch.einsum("bhkv,bhsv->bhsk", dC1, vv) + dn1[..., None, :]
+        dvv = torch.einsum("bhsk,bhkv->bhsv", g[..., None] * kk, dC1)
+        dkk = dgk * g[..., None]
+        dg = (dgk * kk).sum(dim=-1) * g                  # into g's exponent
+        dC0, dn0 = decay[..., None, None] * dC1, decay[..., None] * dn1
+        ddecay = ddecay * decay                          # into decay's exponent
+        dm_new = dm1 - dg.sum(dim=-1) - ddecay
+        share = _max_share(m0 + bb[..., -1], bb[..., -1] + rmax.values)
+        dm0 = ddecay + dm_new * share
+        db_last = dg.sum(dim=-1) + ddecay + dm_new
+        dr = torch.zeros_like(r).scatter_(-1, rmax.indices[..., None],
+                                          (dm_new * (1 - share))[..., None])
+        dii = dg.clone()
+        dbb = -dg
+        dbb[..., -1] += db_last
+
+        # h = num / max(|den|, floor), num = (q k^T * D) v + w q C0,
+        # den = rowsum(q k^T * D) + w q n0
+        dnorm = _denom(den, m)
+        dnum = dhc[:, :, c] / dnorm[..., None]
+        ddnorm = -(dhc[:, :, c] * h).sum(dim=-1) / dnorm
+        share = _max_share(den.abs(), floor)
+        dden = ddnorm * share * torch.sign(den)
+        dmc = -(ddnorm * (1 - share) * floor) * (-m <= 80.0)  # into m, through the floor
+        dSm = torch.einsum("bhtv,bhsv->bhts", dnum, vv) + dden[..., None]
+        dvv = dvv + torch.einsum("bhts,bhtv->bhsv", Smat, dnum)
+        dw = ((dnum * qC).sum(dim=-1) + dden * qn) * w   # into w's exponent
+        dqC, dqn = w[..., None] * dnum, w * dden
+        dqq = torch.einsum("bhtv,bhkv->bhtk", dqC, C0) + dqn[..., None] * n0[..., None, :]
+        dC0 = dC0 + torch.einsum("bhtk,bhtv->bhkv", qq, dqC)
+        dn0 = dn0 + torch.einsum("bhtk,bht->bhk", qq, dqn)
+        dqk = dSm * D
+        dqq = dqq + torch.einsum("bhts,bhsk->bhtk", dqk, kk)
+        dkk = dkk + torch.einsum("bhts,bhtk->bhsk", dqk, qq)
+        dE = dSm * qk * D                                # into D's exponent
+        dmc = dmc - dE.sum(dim=-1) - dw
+        dbb = dbb + dE.sum(dim=-1) - dE.sum(dim=-2)
+        dii = dii + dE.sum(dim=-2)
+        # m = max(m_inter, m_intra), m_inter = m0 + b, m_intra = b + cummax(r)
+        share = _max_share(m_inter, m_intra)
+        dm_inter = dw + dmc * share
+        dm_intra = dmc * (1 - share)
+        dm0 = dm0 + dm_inter.sum(dim=-1)
+        dbb = dbb + dm_inter + dm_intra
+        dr = dr.scatter_add_(-1, cm.indices, dm_intra)
+        # r = i - b
+        dq[:, :, c], dk[:, :, c], dv[:, :, c] = dqq, dkk, dvv
+        di[:, :, c], db[:, :, c] = dii + dr, dbb - dr
+        dC1, dn1, dm1 = dC0, dn0, dm0
+
+    # b = cumsum(logsigmoid(f)): a reverse cumulative sum, then logsigmoid's
+    dlogf = torch.flip(torch.cumsum(torch.flip(db, dims=(-1,)), dim=-1), dims=(-1,))
+    dfc = dlogf * torch.sigmoid(-fc)
+
+    def unchunk(x, like):
+        x = x.reshape(x.shape[0], x.shape[1], nc * chunk, *x.shape[4:])
+        return x[:, :, :S].to(like.dtype)
+
+    return (unchunk(dq * (1.0 / math.sqrt(q.shape[-1])), q), unchunk(dk, k), unchunk(dv, v),
+            unchunk(di, i_gate), unchunk(dfc, f_gate), dC1, dn1, dm1)
+
+
+#: the residuals the mLSTM op saves for its backward, by name
+_MLSTM_SAVED = ("C", "n", "m", "qk", "qC", "qn", "h")
+
+
+def _mlstm_saved_shapes(B, H, nc, Q, K, V) -> tuple:
+    return ((B, H, nc, K, V), (B, H, nc, K), (B, H, nc), (B, H, nc, Q, Q), (B, H, nc, Q, V),
+            (B, H, nc, Q), (B, H, nc, Q, V))
 
 
 @torch.library.custom_op("repro_torch::mlstm_chunkwise", mutates_args=())
 def _mlstm_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_gate: torch.Tensor,
               f_gate: torch.Tensor, C: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
-              chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    h, final = _mlstm_chunks(q, k, v, i_gate, f_gate, chunk, (C, n, m))
-    return (h, *final)
+              chunk: int, save: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                               torch.Tensor, torch.Tensor, torch.Tensor,
+                                               torch.Tensor, torch.Tensor, torch.Tensor,
+                                               torch.Tensor, torch.Tensor]:
+    """(h, C, n, m), then, with ``save``, the residuals of each chunk
+    (``_MLSTM_SAVED``, stacked [B,H,nc,...]), else empty tensors."""
+    saved = [] if save else None
+    h, final = _mlstm_chunks(q, k, v, i_gate, f_gate, chunk, (C, n, m), saved)
+    if save:
+        residuals = [torch.stack(t, dim=2) for t in zip(*saved)]
+    else:
+        residuals = [q.new_empty(0, dtype=torch.float32) for _ in _MLSTM_SAVED]
+    return (h, *final, *residuals)
 
 
 @_mlstm_op.register_fake
-def _(q, k, v, i_gate, f_gate, C, n, m, chunk):
+def _(q, k, v, i_gate, f_gate, C, n, m, chunk, save):
     f32 = torch.float32
-    return (torch.empty_like(v), torch.empty(C.shape, dtype=f32, device=C.device),
-            torch.empty(n.shape, dtype=f32, device=n.device),
-            torch.empty(m.shape, dtype=f32, device=m.device))
+    B, H, S, K = q.shape
+    shapes = (_mlstm_saved_shapes(B, H, -(-S // chunk), chunk, K, v.shape[-1]) if save
+              else ((0,),) * len(_MLSTM_SAVED))
+    return (torch.empty_like(v), *(torch.empty(t.shape, dtype=f32, device=t.device)
+                                   for t in (C, n, m)),
+            *(torch.empty(s, dtype=f32, device=q.device) for s in shapes))
 
 
 @torch.library.custom_op("repro_torch::mlstm_chunkwise_backward", mutates_args=())
 def _mlstm_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       i_gate: torch.Tensor, f_gate: torch.Tensor, C: torch.Tensor,
-                       n: torch.Tensor, m: torch.Tensor, chunk: int, dh: torch.Tensor,
+                       i_gate: torch.Tensor, f_gate: torch.Tensor, Cs: torch.Tensor,
+                       ns: torch.Tensor, ms: torch.Tensor, qk: torch.Tensor, qC: torch.Tensor,
+                       qn: torch.Tensor, h32: torch.Tensor, chunk: int, dh: torch.Tensor,
                        dC: torch.Tensor, dn: torch.Tensor, dm: torch.Tensor) -> list[torch.Tensor]:
-    # torch.func's vjp, since an op's implementation runs below autograd
-    def fwd(q, k, v, i_gate, f_gate, C, n, m):
-        h, final = _mlstm_chunks(q, k, v, i_gate, f_gate, chunk, (C, n, m))
-        return (h, *final)
-
-    _, vjp = torch.func.vjp(fwd, q, k, v, i_gate, f_gate, C, n, m)
-    return list(vjp((dh, dC, dn, dm)))
+    return list(_mlstm_chunks_backward(q, k, v, i_gate, f_gate, chunk,
+                                       (Cs, ns, ms, qk, qC, qn, h32), dh, dC, dn, dm))
 
 
 @_mlstm_backward_op.register_fake
-def _(q, k, v, i_gate, f_gate, C, n, m, chunk, dh, dC, dn, dm):
-    return [torch.empty_like(t) for t in (q, k, v, i_gate, f_gate, C, n, m)]
+def _(q, k, v, i_gate, f_gate, Cs, ns, ms, qk, qC, qn, h32, chunk, dh, dC, dn, dm):
+    return [*(torch.empty_like(t) for t in (q, k, v, i_gate, f_gate)),
+            *(torch.empty_like(t) for t in (dC, dn, dm))]
 
 
 def _mlstm_setup(ctx, inputs, output):
     ctx.chunk = inputs[8]
-    ctx.save_for_backward(*inputs[:8])
+    ctx.dtypes = tuple(t.dtype for t in inputs[5:8])
+    ctx.save_for_backward(*inputs[:5], *output[4:])
 
 
-def _mlstm_grad(ctx, dh, dC, dn, dm):
+def _mlstm_grad(ctx, dh, dC, dn, dm, *_):
     saved = ctx.saved_tensors
-    grads = [torch.zeros_like(like) if g is None else g
-             for g, like in zip((dh, dC, dn, dm), (saved[2], saved[5], saved[6], saved[7]))]
-    return (*torch.ops.repro_torch.mlstm_chunkwise_backward(*saved, ctx.chunk, *grads), None)
+    if saved[5].numel() == 0:
+        raise RuntimeError("mlstm_chunkwise: run with save=False where a gradient is needed")
+    # an output no loss reads has no gradient: zero, in the shape of the
+    # output (h like v; the final state like a chunk's saved one)
+    dh = torch.zeros_like(saved[2]) if dh is None else dh
+    dC, dn, dm = (torch.zeros_like(st[:, :, 0]) if g is None else g
+                  for g, st in zip((dC, dn, dm), saved[5:8]))
+    out = torch.ops.repro_torch.mlstm_chunkwise_backward(*saved, ctx.chunk, dh, dC, dn, dm)
+    state = [g.to(dt) for g, dt in zip(out[5:], ctx.dtypes)]
+    return (*out[:5], *state, None, None)
 
 
 torch.library.register_autograd("repro_torch::mlstm_chunkwise", _mlstm_grad,
@@ -211,17 +371,22 @@ torch.library.register_autograd("repro_torch::mlstm_chunkwise", _mlstm_grad,
 def _mlstm_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
     B, H, S, K = q_shape
     V = v_shape[-1]
-    chunk = args[-1]
-    Q = chunk
-    nc = -(-S // chunk)
+    Q = args[5]  # chunk
+    nc = -(-S // Q)
     # per chunk: q k^T and S v (intra), q C and q n (inter), the C and n updates
     return B * H * nc * (2 * Q * Q * K + 2 * Q * Q * V + 4 * Q * K * V + 4 * Q * K)
 
 
 @register_flop_formula(torch.ops.repro_torch.mlstm_chunkwise_backward)
 def _mlstm_backward_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
-    # the forward again, and the gradient of each product (two of its size)
-    return 3 * _mlstm_flops(q_shape, k_shape, v_shape, *args[:6])
+    B, H, S, K = q_shape
+    V = v_shape[-1]
+    Q = args[9]  # chunk
+    nc = -(-S // Q)
+    # per chunk: two products for each of q k^T, S v, q C and the C update,
+    # one for q n (its gradient in q is an outer product), none for the n
+    # update (its gradient is a broadcast)
+    return B * H * nc * (4 * Q * Q * K + 4 * Q * Q * V + 8 * Q * K * V + 2 * Q * K)
 
 
 def _mlstm_per_shard(q, k, v, i_gate, f_gate, chunk, state, return_state):
@@ -330,13 +495,47 @@ def apply_mlstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     Returns (x + block(x), new cache or None); the cache is a new dict."""
     d_inner, H, Kd, Vd = mlstm_dims(cfg)
     y = L.apply_norm(params["norm"], x, cfg.norm_type, cfg.norm_eps)
-    # the product sharded along its columns, then gathered for the split:
-    # DTensor would otherwise gather the weight and run it whole (as F5 found
-    # for Mamba2's in-projection)
-    u, z = torch.chunk(sharding.unshard_dims(L.apply_dense(params["up"], y), -1), 2, dim=-1)
+    # the product sharded along its rows and columns, then gathered for the
+    # split: DTensor would otherwise gather the weight and run it whole (as F5
+    # found for Mamba2's in-projection), and at decode it contracts the embed
+    # dim where the weight is (FSDP), leaving every batch row on every data
+    # rank as a partial sum, which the value projection would then run whole
+    up = shard(L.apply_dense(params["up"], y), "batch", "seq", "lstm_inner")
+    u, z = torch.chunk(sharding.unshard_dims(up, -1), 2, dim=-1)
     c, new_conv = _conv_silu(u, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype),
                              cache["conv"] if cache is not None else None)
     B, S = x.shape[0], x.shape[1]
+    gates = L.apply_dense(params["w_if"], c)  # [B,S,2H]
+    i_gate = gates[..., :H].transpose(1, 2)
+    f_gate = gates[..., H:].transpose(1, 2)
+
+    # at decode the split would sum the whole state over the model ranks
+    # every step: a head's ranks run it whole there
+    split = _value_split_dim(c, H, Kd, Vd) if cache is None else None
+    if split is not None:
+        h, final = _mlstm_value_split(params, cfg, split, c, u, i_gate, f_gate,
+                                      return_state=return_cache)
+    else:
+        h, final = _mlstm_heads(params, cfg, c, u, i_gate, f_gate, cache, return_cache)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"conv": new_conv, "C": final[0], "n": final[1], "m": final[2]}
+    elif return_cache:
+        new_cache = {"conv": _conv_window(u, cfg.xlstm.conv_width),
+                     "C": final[0], "n": final[1], "m": final[2]}
+
+    h = h.to(x.dtype) * params["head_norm"].to(x.dtype)
+    h = h + params["skip"].to(x.dtype) * c
+    out = L.apply_dense(params["down"], h * F.silu(z))
+    return x + out, new_cache
+
+
+def _mlstm_heads(params, cfg: ModelConfig, c, u, i_gate, f_gate, cache, return_cache):
+    """The mLSTM cell over whole heads: the per-head projections, the chunk
+    loop (or, with ``cache``, one step) and the per-head norm.  Returns (h
+    normed [B,S,Di] f32, the final (C, n, m) or None)."""
+    d_inner, H, Kd, Vd = mlstm_dims(cfg)
+    B, S = c.shape[0], c.shape[1]
 
     def block_proj(t, w):
         # block-diagonal per-head projection: [B,S,H,Vd] x [H,Vd,out]
@@ -348,33 +547,126 @@ def apply_mlstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     q = shard(q, "batch", "lstm_heads", "seq", None)
     k = shard(k, "batch", "lstm_heads", "seq", None)
     v = shard(v, "batch", "lstm_heads", "seq", None)
-    gates = L.apply_dense(params["w_if"], c)  # [B,S,2H]
-    i_gate = gates[..., :H].transpose(1, 2)
-    f_gate = gates[..., H:].transpose(1, 2)
 
-    new_cache = None
+    final = None
     if cache is None:
-        if return_cache:
-            h, (C1, n1, m1) = mlstm_chunkwise(q, k, v, i_gate, f_gate,
-                                              chunk=cfg.xlstm.chunk_size, return_state=True)
-            new_cache = {"conv": _conv_window(u, cfg.xlstm.conv_width),
-                         "C": C1, "n": n1, "m": m1}
-        else:
-            h = mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk=cfg.xlstm.chunk_size)
+        out = mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk=cfg.xlstm.chunk_size,
+                              return_state=return_cache)
+        h, final = out if return_cache else (out, None)
     else:
-        h, (C1, n1, m1) = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], i_gate[:, :, 0],
-                                     f_gate[:, :, 0], (cache["C"], cache["n"], cache["m"]))
+        h, final = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], i_gate[:, :, 0],
+                              f_gate[:, :, 0], (cache["C"], cache["n"], cache["m"]))
         h = h[:, :, None, :]
-        new_cache = {"conv": new_conv, "C": C1, "n": n1, "m": m1}
 
-    # per-head norm in f32, then the learnable skip from the conv path
+    # per-head norm in f32
     h32 = h.transpose(1, 2).float().reshape(B, S, H, Vd)
     var = torch.mean(torch.square(h32), dim=-1, keepdim=True)
-    h = attn._merge_heads(h32 * torch.rsqrt(var + cfg.norm_eps))
-    h = h.to(x.dtype) * params["head_norm"].to(x.dtype)
-    h = h + params["skip"].to(x.dtype) * c
-    out = L.apply_dense(params["down"], h * F.silu(z))
-    return x + out, new_cache
+    return attn._merge_heads(h32 * torch.rsqrt(var + cfg.norm_eps)), final
+
+
+def _value_split_dim(c, H: int, Kd: int, Vd: int) -> int | None:
+    """The mesh dim whose ranks split each head's value dim (ROADMAP F9):
+    the one the rules give the heads (``"lstm_heads"``) where the H heads
+    cannot take it, if H divides its size M and each head's value dim
+    divides among the M / H ranks the head gets.  None on plain tensors and
+    on every other mesh."""
+    if not sharding.is_dtensor(c):
+        return None
+    mesh = c.device_mesh
+    qp = sharding.act_placements(c.new_empty(()).expand(c.shape[0], H, c.shape[1], Kd),
+                                 "batch", "lstm_heads", "seq", None)
+    dims = sharding.untaken_axes(qp, mesh, "lstm_heads")
+    if len(dims) != 1:
+        return None
+    size = mesh.size(dims[0])
+    return dims[0] if size % H == 0 and Vd % (size // H) == 0 else None
+
+
+def _at(t, index: int, count: int, dim: int):
+    """``t`` in slot ``index`` of ``count`` along ``dim`` (its size there one
+    slot's), zeros in the others."""
+    zeros = torch.zeros_like(t)
+    return torch.cat([t if i == index else zeros for i in range(count)], dim=dim)
+
+
+def _mlstm_value_split(params, cfg: ModelConfig, dim: int, c, u, i_gate, f_gate,
+                       return_state: bool = False):
+    """:func:`_mlstm_heads` over the whole sequence where the H heads do not
+    take the model axis but divide it (mesh dim ``dim``, M ranks): rank j
+    holds head j // (M/H) and the (j % (M/H))-th slice of its value dim, the
+    columns of the inner dim [B,S,Di] that the rules' ``"lstm_inner"`` split
+    gives it.  The mLSTM is independent across the value dim but for the
+    per-head norm.  Per rank (``local_map``), from c and u, which are whole
+    on every rank: the head's q and k, the rank's columns of its v, the
+    chunk loop, and the norm by the head's variance, summed over the head's
+    ranks (a run, :func:`sharding.split_group`).  In the backward the
+    gradients of c, u, wq and wk are partial sums over the run and are
+    reduce-scattered over it alone (:func:`sharding.run_grad`).  Where XLA
+    splits the contraction of q and k over the run and sums them there,
+    each rank here projects its head's q and k whole: r times XLA's
+    products, and no sum of them in the forward or of their gradients in
+    the backward.
+
+    Returns (h normed [B,S,Di] f32, the final (C, n, m) placed as the cache
+    is, or None)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    d_inner, H, Kd, Vd = mlstm_dims(cfg)
+    mesh = c.device_mesh
+    r = mesh.size(dim) // H                         # ranks a head
+    group = sharding.split_group(mesh, dim, r)
+    inner = sharding.act_placements(c, "batch", "seq", "lstm_inner")  # Shard(2) on dim
+    head, part = divmod(sharding.local_rank_along(mesh, inner, 2)[0], r)
+    rows = sharding.follow(inner, {0: 0})           # the batch split alone
+    summed = tuple(Partial() if i == dim else p for i, p in enumerate(rows))
+    whole = sharding.follow(inner, {})
+    run_rows = tuple(Shard(0) if i == dim else p for i, p in enumerate(whole))
+    w_grad = tuple(Partial() if i == dim or p.is_shard() else p for i, p in enumerate(rows))
+    wv_grad = tuple(Shard(0) if i == dim else pg for i, pg in enumerate(w_grad))
+
+    def cell(c_, u_, wq, wk, wv, ig, fg):
+        B_, S_ = c_.shape[0], c_.shape[1]
+        heads = slice(head * Vd, (head + 1) * Vd)
+        q, k = (torch.einsum("bsv,vo->bso", c_[..., heads], w[heads].to(c_.dtype))[:, None]
+                for w in (wq, wk))
+        v = torch.einsum("bsv,ov->bso", u_[..., heads], wv.to(u_.dtype))[:, None]
+        one = slice(head, head + 1)
+        out = mlstm_chunkwise(q, k, v, ig[:, one], fg[:, one], chunk=cfg.xlstm.chunk_size,
+                              return_state=return_state)
+        h, final = out if return_state else (out, None)
+        h32 = h.transpose(1, 2).float().reshape(B_, S_, -1)
+        var = sharding.group_sum(torch.square(h32).sum(dim=-1, keepdim=True), group) / Vd
+        h32 = h32 * torch.rsqrt(var + cfg.norm_eps)
+        if final is None:
+            return h32
+        C1, n1, m1 = final
+        if part:  # n and m from the head's first rank alone
+            n1, m1 = torch.zeros_like(n1), torch.zeros_like(m1)
+        return h32, C1[:, 0], _at(n1, head, H, 1), _at(m1, head, H, 1)
+
+    # the weights by heads: wq, wk [H * Vd (in), Kd], wv [H * Vd (out), Vd (in)],
+    # whose rank j's rows are its own head's v columns
+    # (their gradients whole again before the views' backward splits the heads)
+    wq, wk = (sharding.run_grad(sharding.grad_as_forward(params[w].reshape(H * Vd, Kd)),
+                                0, dim, r) for w in ("wq", "wk"))
+    wv = sharding.grad_as_forward(params["wv"].transpose(1, 2).reshape(H * Vd, Vd))
+    wv = sharding.grad_as_forward(wv.redistribute(mesh, run_rows))  # summed on the slice
+    # whole gates, whose gradients come back whole: a partial one would make
+    # c's gradient through w_if a partial sum of the whole inner dim
+    i_gate, f_gate = (sharding.reduce_partial(t) for t in (i_gate, f_gate))
+    # the state's [B,Kd,Vd/r] slices side by side, as the inner dim's columns
+    outs = ((inner, sharding.follow(inner, {0: 0, 2: 2}), summed, summed) if return_state
+            else inner)
+    res = sharding.local_map(
+        cell, outs, (rows, rows, whole, whole, run_rows, rows, rows), mesh,
+        in_grad_placements=(summed, summed, w_grad, w_grad, wv_grad, summed, summed))(
+        *(sharding.run_grad(t, -1, dim, r) for t in (c, u)), wq, wk, wv, i_gate, f_gate)
+    if not return_state:
+        return res, None
+    h, C, n, m = res
+    B = C.shape[0]
+    C = sharding.unshard_dims(C, -1).reshape(B, Kd, H, Vd).transpose(1, 2)
+    return h, (C, n, m)
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device):
@@ -428,17 +720,21 @@ def init_slstm_block(cfg: ModelConfig):
     }
 
 
-def _slstm_steps(wx, R, state):
+def _slstm_steps(wx, R, state, pre: list | None = None):
     """The sLSTM recurrence over time, one step at a time in f32 (the
     reference's ``lax.scan``).  wx: the four gates' input projections
     (z, i, f, o) [B,S,H,dh] f32; R: their recurrent weights [H,dh,dh] f32;
     state: (h, c, n, m) [B,H,dh] f32.  Returns the states after every step,
-    (h, c, n, m) each stacked [B,S,H,dh]."""
+    (h, c, n, m) each stacked [B,S,H,dh].  With ``pre`` (a list), each step
+    appends its four pre-activations, which the backward reads
+    (:func:`_slstm_steps_backward`)."""
     h, c, n, m = state
     one = torch.ones((), dtype=h.dtype, device=h.device)
     hs, cs, ns, ms = [], [], [], []
     for t in range(wx[0].shape[1]):
         pz, pi, pf, po = (w[:, t] + torch.einsum("bhd,hde->bhe", h, r) for w, r in zip(wx, R))
+        if pre is not None:
+            pre.append((pz, pi, pf, po))
         logf = F.logsigmoid(pf)
         m_new = torch.maximum(logf + m, pi)
         iw = torch.exp(pi - m_new)
@@ -454,47 +750,98 @@ def _slstm_steps(wx, R, state):
     return tuple(torch.stack(v, dim=1) for v in (hs, cs, ns, ms))
 
 
+def _slstm_steps_backward(R, state, pre, stacks, grads):
+    """The gradient of :func:`_slstm_steps` with respect to wx, R and the
+    initial state, through time in reverse, from the pre-activations the
+    forward saved (``pre``, (z, i, f, o) each [B,S,H,dh]), its stacked
+    states and their gradients ``grads``: two products for each of the
+    forward's, the recurrent weights' gradient one product a gate over every
+    step at the end."""
+    one = torch.ones((), dtype=stacks[0].dtype, device=stacks[0].device)
+    prev = [torch.cat([s0[:, None], st[:, :-1]], dim=1) for s0, st in zip(state, stacks)]
+    dh, dc, dn, dm = (torch.zeros_like(s) for s in state)
+    dpre = [torch.empty_like(p) for p in pre]
+    for t in reversed(range(stacks[0].shape[1])):
+        pz, pi, pf, po = (p[:, t] for p in pre)
+        _, c_prev, n_prev, m_prev = (p[:, t] for p in prev)
+        _, c_new, n_new, m_new = (st[:, t] for st in stacks)
+        dh_t, dc_t, dn_t, dm_t = (g[:, t] + d for g, d in zip(grads, (dh, dc, dn, dm)))
+        # h = sigmoid(o~) c / max(n, 1)
+        o, den = torch.sigmoid(po), torch.maximum(n_new, one)
+        dpo = dh_t * c_new / den * o * (1 - o)
+        dc_t = dc_t + dh_t * o / den
+        dn_t = dn_t - dh_t * o * c_new / den ** 2 * _max_share(n_new, one)
+        # c = fw c + iw tanh(z~), n = fw n + iw
+        logf, z = F.logsigmoid(pf), torch.tanh(pz)
+        iw, fw = torch.exp(pi - m_new), torch.exp(logf + m_prev - m_new)
+        dpz = dc_t * iw * (1 - z * z)
+        dc, dn = dc_t * fw, dn_t * fw
+        dfw = (dc_t * c_prev + dn_t * n_prev) * fw      # into fw's exponent
+        diw = (dc_t * z + dn_t) * iw                     # into iw's exponent
+        dm_t = dm_t - dfw - diw
+        # m = max(logf + m_prev, i~)
+        share = _max_share(logf + m_prev, pi)
+        dlogf = dfw + dm_t * share
+        dm = dfw + dm_t * share
+        dpi = diw + dm_t * (1 - share)
+        dpf = dlogf * torch.sigmoid(-pf)
+        for d, g in zip(dpre, (dpz, dpi, dpf, dpo)):
+            d[:, t] = g
+        # each pre-activation is w_t + h_prev R
+        dh = sum(torch.einsum("bhe,hde->bhd", g, r) for g, r in zip((dpz, dpi, dpf, dpo), R))
+    dR = tuple(torch.einsum("bshd,bshe->hde", prev[0], d) for d in dpre)
+    return (*dpre, *dR, dh, dc, dn, dm)
+
+
 @torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
 def _slstm_scan_op(wz: torch.Tensor, wi: torch.Tensor, wf: torch.Tensor, wo: torch.Tensor,
                    rz: torch.Tensor, ri: torch.Tensor, rf: torch.Tensor, ro: torch.Tensor,
                    h: torch.Tensor, c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    return _slstm_steps((wz, wi, wf, wo), (rz, ri, rf, ro), (h, c, n, m))
+                   save: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The stacked states (h, c, n, m), then, with ``save``, the four
+    pre-activations stacked [4,B,S,H,dh], else an empty tensor."""
+    pre = [] if save else None
+    stacks = _slstm_steps((wz, wi, wf, wo), (rz, ri, rf, ro), (h, c, n, m), pre)
+    if save:
+        saved = torch.stack([torch.stack(p, dim=1) for p in zip(*pre)])
+    else:
+        saved = wz.new_empty(0)
+    return (*stacks, saved)
 
 
 @_slstm_scan_op.register_fake
-def _(wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m):
-    return tuple(torch.empty_like(wz) for _ in range(4))
+def _(wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m, save):
+    return (*(torch.empty_like(wz) for _ in range(4)),
+            wz.new_empty((4, *wz.shape) if save else (0,)))
 
 
 @torch.library.custom_op("repro_torch::slstm_scan_backward", mutates_args=())
-def _slstm_scan_backward_op(wz: torch.Tensor, wi: torch.Tensor, wf: torch.Tensor,
-                            wo: torch.Tensor, rz: torch.Tensor, ri: torch.Tensor,
-                            rf: torch.Tensor, ro: torch.Tensor, h: torch.Tensor,
-                            c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+def _slstm_scan_backward_op(rz: torch.Tensor, ri: torch.Tensor, rf: torch.Tensor,
+                            ro: torch.Tensor, h: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+                            m: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+                            ns: torch.Tensor, ms: torch.Tensor, pre: torch.Tensor,
                             dhs: torch.Tensor, dcs: torch.Tensor, dns: torch.Tensor,
                             dms: torch.Tensor) -> list[torch.Tensor]:
-    # torch.func's vjp of the same loop, as for the mLSTM
-    def fwd(*a):
-        return _slstm_steps(a[:4], a[4:8], a[8:])
-
-    _, vjp = torch.func.vjp(fwd, wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m)
-    return list(vjp((dhs, dcs, dns, dms)))
+    return list(_slstm_steps_backward((rz, ri, rf, ro), (h, c, n, m), tuple(pre),
+                                      (hs, cs, ns, ms), (dhs, dcs, dns, dms)))
 
 
 @_slstm_scan_backward_op.register_fake
-def _(wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m, dhs, dcs, dns, dms):
-    return [torch.empty_like(t) for t in (wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m)]
+def _(rz, ri, rf, ro, h, c, n, m, hs, cs, ns, ms, pre, dhs, dcs, dns, dms):
+    return [torch.empty_like(t) for t in (hs, hs, hs, hs, rz, ri, rf, ro, h, c, n, m)]
 
 
 def _slstm_scan_setup(ctx, inputs, output):
-    ctx.save_for_backward(*inputs)
+    ctx.save_for_backward(*inputs[4:12], *output)
 
 
-def _slstm_scan_grad(ctx, dhs, dcs, dns, dms):
+def _slstm_scan_grad(ctx, dhs, dcs, dns, dms, _):
     saved = ctx.saved_tensors
-    grads = [torch.zeros_like(saved[0]) if g is None else g for g in (dhs, dcs, dns, dms)]
-    return tuple(torch.ops.repro_torch.slstm_scan_backward(*saved, *grads))
+    if saved[-1].numel() == 0:
+        raise RuntimeError("slstm_scan: run with save=False where a gradient is needed")
+    grads = [torch.zeros_like(saved[8]) if g is None else g for g in (dhs, dcs, dns, dms)]
+    return (*torch.ops.repro_torch.slstm_scan_backward(*saved, *grads), None)
 
 
 torch.library.register_autograd("repro_torch::slstm_scan", _slstm_scan_grad,
@@ -508,14 +855,15 @@ def _slstm_scan_flops(wz_shape, *args, out_shape=None, **kwargs) -> int:
 
 
 @register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)
-def _slstm_scan_backward_flops(wz_shape, *args, out_shape=None, **kwargs) -> int:
-    # the forward again, and the gradient of each product (two of its size)
-    return 3 * _slstm_scan_flops(wz_shape)
+def _slstm_scan_backward_flops(rz_shape, *args, out_shape=None, **kwargs) -> int:
+    # two products for each recurrent one: into h_prev a step, into R at the end
+    return 2 * _slstm_scan_flops(args[7])  # hs: [B,S,H,dh]
 
 
 def slstm_scan(wx, R, state):
     """:func:`_slstm_steps` as one op (``torch.ops.repro_torch.slstm_scan``),
-    with torch.func's vjp of the same loop as its gradient: a traced step
+    which, where a gradient is needed, also returns its pre-activations for
+    its backward op (:func:`_slstm_steps_backward`): a traced step
     (:mod:`repro_torch.launch.dryrun`) records the whole loop as one node
     with the FLOPs of its products, where the steps one by one would be
     thousands of nodes a layer.  On DTensors it runs per rank on its batch
@@ -534,7 +882,8 @@ def slstm_scan(wx, R, state):
             lambda *a: slstm_scan(a[:4], a[4:8], a[8:]), (wp,) * 4,
             (wp,) * 4 + (rp,) * 4 + (sp,) * 4, wx[0].device_mesh,
             in_grad_placements=(None,) * 4 + (r_grad,) * 4 + (None,) * 4)(*wx, *R, *state)
-    return torch.ops.repro_torch.slstm_scan(*wx, *R, *state)
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in (*wx, *R, *state))
+    return torch.ops.repro_torch.slstm_scan(*wx, *R, *state, save)[:4]
 
 
 def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple):

@@ -307,6 +307,24 @@ def grad_placements(src: tuple, shard: dict[int, int], partial: set[int]) -> tup
     return tuple(one(p) for p in src)
 
 
+def untaken_axes(placements_: tuple, mesh, logical: str, *sizes: int) -> list[int]:
+    """The mesh dims, of a size above 1, that the active activation rules
+    give to ``logical`` but that ``placements_`` leave replicated (the dim
+    could not take them), as many as every one of ``sizes`` divides by, in
+    the mesh's order: the ranks along them hold the same data, and may split
+    another dim of the work."""
+    target = (_ACTIVE.acts or ACT_RULES).rules.get(logical)
+    names = () if target is None else target if isinstance(target, tuple) else (target,)
+    out, prod = [], 1
+    for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, placements_)):
+        size = mesh.size(i)
+        if (name in names and p.is_replicate() and size > 1
+                and all(n % (prod * size) == 0 for n in sizes)):
+            out.append(i)
+            prod *= size
+    return out
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -590,3 +608,95 @@ def local_rank_along(mesh, placements_: tuple, dim: int) -> tuple[int, int]:
             index = index * size + coord[i]
             count *= size
     return index, count
+
+
+def split_group(mesh, dim: int, size: int):
+    """The process group of this rank and the other ranks of its run of
+    ``size`` along mesh dim ``dim`` (coordinates ``size * j`` to
+    ``size * (j + 1) - 1`` there, its other coordinates the same): the view
+    of that dim as (runs, ``size``), which a DeviceMesh dim cannot be.
+    Every run's group is made once a mesh, by every rank in one order."""
+    import torch.distributed as dist
+
+    groups = mesh.__dict__.setdefault("_split_groups", {})
+    if (dim, size) not in groups:
+        lines = mesh.mesh.movedim(dim, -1).reshape(-1, mesh.size(dim)).tolist()
+        runs = [line[j:j + size] for line in lines for j in range(0, len(line), size)]
+        if any(run != sorted(run) for run in runs):
+            raise ValueError(f"split_group: ranks along mesh dim {dim} do not ascend")
+        mine = dist.get_rank()
+        for run in runs:
+            group = dist.new_group(run)
+            if mine in run:
+                groups[dim, size] = group
+    return groups[dim, size]
+
+
+def _waited(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(t)
+
+
+class _GroupSum(torch.autograd.Function):
+    """The sum over a group's ranks of each rank's ``x``, on every rank; the
+    gradient is summed the same way (each rank's output feeds its own
+    work)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.group = group
+        return _waited(funcol.all_reduce(x.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+
+        return _waited(funcol.all_reduce(g.contiguous(), "sum", ctx.group)), None
+
+
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Local ``x`` summed over the ranks of ``group`` (a run of a mesh dim,
+    :func:`split_group`), with its gradient, inside :func:`local_map`."""
+    return _GroupSum.apply(x, group)
+
+
+class _RunGrad(torch.autograd.Function):
+    """Identity on a DTensor; see :func:`run_grad`."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh_dim, size):
+        ctx.dim, ctx.mesh_dim, ctx.size = dim, mesh_dim, size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Shard
+
+        mesh, dim, md, size = g.device_mesh, ctx.dim, ctx.mesh_dim, ctx.size
+        runs = mesh.size(md) // size
+        block = g.shape[dim] // runs
+        run = mesh.get_coordinate()[md] // size
+        local = g.to_local().narrow(dim, run * block, block)
+        scatter = getattr(funcol, "reduce_scatter_single", None) or funcol.reduce_scatter_tensor
+        piece = _waited(scatter(local.contiguous(), "sum", dim, split_group(mesh, md, size)))
+        placements = tuple(Shard(dim) if i == md else p for i, p in enumerate(g.placements))
+        piece = DTensor.from_local(piece, mesh, placements, shape=g.shape, stride=g.stride())
+        return _replicated_where(piece, lambda p: p.is_partial()), None, None, None
+
+
+def run_grad(x: torch.Tensor, dim: int, mesh_dim: int, size: int) -> torch.Tensor:
+    """``x`` as it is, for a :func:`local_map` that reads it whole along
+    ``mesh_dim`` and hands back its gradient as ``Partial("sum")`` there, in
+    which each run of ``size`` ranks (:func:`split_group`) writes only its
+    run's block of tensor dim ``dim`` (one of as many blocks as there are
+    runs).  That gradient comes back summed over the run alone, each rank
+    keeping its ``Shard(dim)`` slice, its partial sums over other mesh dims
+    reduced on that slice: a reduce-scatter over the run, where DTensor
+    would reduce the whole, mostly zero, tensor over the mesh dim."""
+    if not (is_dtensor(x) and x.requires_grad):
+        return x
+    return _RunGrad.apply(x, dim % x.ndim, mesh_dim, size)

@@ -173,6 +173,7 @@ def _train_worker(rank, tmp, arch, shape=(2, 2), n_experts=None):
     cfg = fabric.model.cfg
     sizes = sh.mesh_axis_sizes(mesh)
     specs = {"lstm_heads": sh.assign_spec(("lstm_heads",), (cfg.n_heads,), sh.ACT_RULES, sizes)}
+    splits = _splits(cfg, mesh)
     gmm = None
     if cfg.moe is not None:
         E, F_ = cfg.moe.n_experts, cfg.moe.d_ff
@@ -197,7 +198,7 @@ def _train_worker(rank, tmp, arch, shape=(2, 2), n_experts=None):
            "m_placements_match": all(m.placements == p.placements for m, p in
                                      zip(flat(fabric.state.opt.m), flat(fabric.state.params))),
            "grad_placements_match": grad_placements_match, "raw_differ": raw_differ,
-           "n_leaves": len(got), "specs": specs, "gmm": gmm}
+           "n_leaves": len(got), "specs": specs, "splits": splits, "gmm": gmm}
     if rank == 0:
         want_records = [plain.train_steps(1) for _ in range(2)]
         want = [x.numpy() for x in flat(plain.state.params)]
@@ -207,6 +208,90 @@ def _train_worker(rank, tmp, arch, shape=(2, 2), n_experts=None):
             want_grad_norms=[r["grad_norm"] for r in want_records],
             param_excess=max(float(np.max(np.abs(g - w) - (2 * lr0 + 1e-4 * np.abs(w))))
                              for g, w in zip(got, want)))
+    return out
+
+
+def _splits(cfg, mesh, batch=4, seq=16) -> dict:
+    """Where the mesh splits the work the reference's XLA splits and the
+    rules cannot say: the mesh dims whose ranks split one routing group's
+    expert work (ROADMAP F11), and the one whose ranks split each xLSTM
+    head's value dim (F9), for a [batch, seq] input."""
+    from repro_torch.models import moe, xlstm
+    from repro_torch.parallel import sharding as sh
+
+    out = {}
+    with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+        x = sh.distribute_input(torch.zeros(batch, seq, cfg.d_model), "batch", "seq", "embed")
+        if cfg.moe is not None and moe.group_tokens(batch * seq) == 1:
+            C = moe.capacity_for(batch * seq, cfg)
+            hp = sh.act_placements(x.new_empty(()).expand(1, cfg.moe.n_experts, C, cfg.moe.d_ff),
+                                   "batch", "experts", "expert_capacity", "mlp")
+            out["moe"] = sh.untaken_axes(hp, mesh, "batch", cfg.d_model, batch)
+        if cfg.xlstm is not None:
+            d_inner, H, Kd, Vd = xlstm.mlstm_dims(cfg)
+            c = sh.distribute_input(torch.zeros(batch, seq, d_inner), "batch", "seq", "lstm_inner")
+            out["xlstm"] = xlstm._value_split_dim(c, H, Kd, Vd)
+    return out
+
+
+def _tree_leaves(tree, path=""):
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], f"{path}/{k}")
+    elif tree is not None:
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{path}/{i}")
+
+
+DECODE_CASES = {"mixtral-8x7b-2x2": ("mixtral-8x7b", (2, 2)),
+                "xlstm-1.3b-2x2": ("xlstm-1.3b", (2, 2)),
+                "xlstm-1.3b-1x4": ("xlstm-1.3b", (1, 4))}
+
+
+def _decode_worker(rank, tmp):
+    """Each of ``DECODE_CASES``: prefill of 16 tokens and 2 decode steps of
+    SMOKE ``arch`` on the mesh, against the same unsharded: max |difference|
+    of the logits and of every cache leaf, each with its scale."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model, param_axes, param_shapes
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.testing import redraw_params_
+
+    out = {}
+    for name, (arch, shape) in DECODE_CASES.items():
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        cfg = configs.get(arch, smoke=True).replace(compute_dtype="float32")
+        model = Model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        redraw_params_(params, 3)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+        steps = [torch.randint(0, cfg.vocab_size, (2, 1), generator=gen) for _ in range(2)]
+        with torch.inference_mode():
+            want, cache = model.prefill(params, {"tokens": tokens}, 24)
+            want = [want]
+            for i, t in enumerate(steps):
+                want.append(model.decode_step(params, t, cache, 16 + i)[0])
+            dparams = sh.distribute_tree(params, sh.param_shardings(
+                param_axes(cfg), mesh, sh.PARAM_RULES, param_shapes(cfg)))
+            with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+                logits, dcache = model.prefill(dparams, {"tokens": sh.distribute_input(
+                    tokens, "batch", "seq")}, 24)
+                got = [logits]
+                for i, t in enumerate(steps):
+                    got.append(model.decode_step(dparams, sh.distribute_input(t, "batch", "seq"),
+                                                 dcache, 16 + i)[0])
+                got = [g.full_tensor() for g in got]
+                got_cache = {p: sh.full_tensor(t) for p, t in _tree_leaves(dcache)}
+        out[name] = {
+            "splits": _splits(cfg, mesh, 2, 1),
+            "logits": [(float((g - w).abs().max()), float(w.abs().max()))
+                       for g, w in zip(got, want)],
+            "cache": {p: (float((got_cache[p] - t).abs().max()), float(t.abs().max()))
+                      for p, t in _tree_leaves(cache)}}
     return out
 
 
@@ -386,9 +471,13 @@ def test_sharded_training_matches_single_process(arch, shape, n_experts, tmp_pat
     output, and the gradients of its input, dispatch and combine, are
     partial sums over those ranks, and ``apply_moe(use_gmm=True)`` on the
     mesh matches whole tensors.  SMOKE xlstm's 2 heads on 4 model ranks
-    stay whole on every rank (ROADMAP F9)."""
+    split each head's value dim over 2 of them (ROADMAP F9), their sums
+    and gradients over those 2 ranks alone."""
     results = _trained(arch, tmp_path, shape, n_experts)
     lead = results[0]
+    want_splits = {("mixtral-8x7b", (2, 2)): {"moe": [0]}, ("mixtral-8x7b", (1, 4)): {"moe": []},
+                   ("xlstm-1.3b", (2, 2)): {"xlstm": None}, ("xlstm-1.3b", (1, 4)): {"xlstm": 1}}
+    assert lead["splits"] == want_splits.get((arch, shape), {}), lead["splits"]
     if n_experts is not None:
         assert lead["specs"]["h"] == ("data", None, None, "model"), lead["specs"]
         gmm = lead["gmm"]
@@ -401,6 +490,36 @@ def test_sharded_training_matches_single_process(arch, shape, n_experts, tmp_pat
     for r in results[1:]:  # every rank reports the same metrics
         assert r["losses"] == lead["losses"] and r["grad_norms"] == lead["grad_norms"]
     assert all(r["m_placements_match"] for r in results)
+
+
+_DECODE: list = []
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_sharded_decode_matches_unsharded(case, tmp_path):
+    """Prefill then 2 decode steps on the mesh: the logits and every cache
+    leaf at the file's tolerances (1e-5 of each's scale).  Mixtral's 2
+    tokens a step, and its 32-token prompt, are one routing group whose
+    expert work the data ranks split (ROADMAP F11); xLSTM's decode runs its
+    value projection on a data rank's rows (F12) and, with 2 heads on 4
+    model ranks, its prefill splits each head's value dim over 2 of them
+    (F9), the final state gathered to the cache's placement, and its
+    decode steps run the heads whole.  All cases run in one spawn of the
+    ranks."""
+    if not _DECODE:
+        _DECODE.append(run_ranks(tmp_path, _decode_worker))
+    results = _DECODE[0]
+    arch, shape = DECODE_CASES[case]
+    want_splits = {"mixtral-8x7b-2x2": {"moe": [0]}, "xlstm-1.3b-2x2": {"xlstm": None},
+                   "xlstm-1.3b-1x4": {"xlstm": 1}}[case]
+    for r in results:
+        c = r[case]
+        assert c["splits"] == want_splits, c["splits"]
+        assert len(c["logits"]) == 3 and len(c["cache"]) > 0
+        for diff, scale in c["logits"]:
+            assert diff <= 1e-5 * max(1.0, scale), (case, c["logits"])
+        for path, (diff, scale) in c["cache"].items():
+            assert diff <= 1e-5 * max(1.0, scale), (case, path, diff, scale)
 
 
 def test_grad_shardings_match_param_placements(tmp_path):

@@ -28,22 +28,13 @@ zamba2's in (j) are exact (counts, bytes, shapes, FLOPs are integers):
   feeds the roofline, and a failed or refused trace is an error record;
 * (i) a prefill cell with ``attention_impl="flash"`` traces through the
   kernels' custom ops and counts their FLOP formula;
-* (j) the placements against the reference's: on a (2, 4) mesh the port's
-  train step runs, per device, the products the reference's compiled step
-  runs (a dot in one of XLA's loops once a trip), FLOP for FLOP (zamba2:
-  its total within 1e-2, since XLA lowers the SSD einsums to other
-  products); mixtral with 2 experts on 4 model ranks all but the router's
-  weight gradient (F8); xlstm with 4 heads its total within 8e-2, and with
-  SMOKE's 2 heads about twice the reference's (F9, open).
+* (j) the placements against the reference's, on a (2, 4) mesh, for the
+  train, prefill and decode cells of every SMOKE arch: in a file of its own
+  (``tests/test_torch_placements.py``), which compiles the reference's
+  steps one JAX process an arch.
 """
 
-import collections
-import dataclasses
 import json
-import math
-import re
-import subprocess
-import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -304,213 +295,7 @@ def test_train_step_flops_equal_flop_counter_on_real_tensors(smoke):
     assert rec["cost"]["flops"] == counter.get_total_flops()
 
 
-# --- (j) the placements against the reference's SPMD partitioning ------------------------
-
-# the reference's train step (as ``tests/launch/test_specs_dryrun.py`` lowers
-# it) compiled on a (2, 4) mesh of host devices, in a process of its own
-# (the device count is fixed when JAX starts); prints the compiled HLO
-_REF_HLO = r"""
-import dataclasses, json, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-import jax
-from repro import configs
-from repro.configs.base import ShapeConfig, TrainConfig
-from repro.launch import specs
-from repro.launch.mesh import make_mesh
-from repro.models.model import Model
-from repro.parallel.sharding import PARAM_RULES, use_rules
-from repro.train.loop import make_train_step
-
-cfg = configs.get(sys.argv[1], smoke=True).replace(unroll_layers=True)
-for key, val in json.loads(sys.argv[4]).items():  # a nested dict replaces a sub-config's fields
-    cfg = cfg.replace(**{key: dataclasses.replace(getattr(cfg, key), **val)
-                         if isinstance(val, dict) else val})
-shape = ShapeConfig("train_4k", "train", seq_len=int(sys.argv[3]), global_batch=int(sys.argv[2]))
-mesh = make_mesh((2, 4), ("data", "model"))
-step = make_train_step(Model(cfg), TrainConfig())
-rules = specs.act_rules_for(cfg, shape, mesh)
-
-def fn(state, batch):
-    with use_rules(PARAM_RULES, rules, mesh):
-        return step(state, batch)
-
-with mesh:
-    text = jax.jit(fn).lower(specs.state_specs(cfg, mesh),
-                             specs.batch_specs(cfg, shape, mesh)).compile().as_text()
-print(json.dumps(text))
-"""
-
-
-def _hlo_computations(text: str) -> tuple[dict[str, list[str]], str]:
-    """The lines of each computation of compiled HLO text, and the entry's name."""
-    comps: dict[str, list[str]] = {}
-    entry = name = None
-    for line in text.splitlines():
-        head = re.match(r"^(ENTRY )?%([\w.\-]+) .*\{$", line)
-        if head:
-            name = head[2]
-            comps[name] = []
-            entry = name if head[1] else entry
-        elif line.startswith("}"):
-            name = None
-        elif name is not None:
-            comps[name].append(line)
-    return comps, entry
-
-
-def _hlo_runs(comps: dict[str, list[str]], entry: str) -> dict[str, int]:
-    """How many times one step runs each computation: a ``while`` body its
-    caller's count times the loop's ``known_trip_count`` (a scan over time
-    or over chunks, which XLA keeps as a loop), a fusion or call its
-    caller's count."""
-    runs = {entry: 1}
-    todo = [entry]
-    while todo:
-        caller = todo.pop()
-        for line in comps[caller]:
-            if " while(" in line:
-                trips = re.search(r'known_trip_count":\{"n":"(\d+)"', line)
-                assert trips, line[:200]
-                callees = [(re.search(r"body=%([\w.\-]+)", line)[1], int(trips[1]))]
-            else:
-                callees = [(c, 1) for c in re.findall(r"(?:calls|to_apply)=%([\w.\-]+)", line)]
-            for callee, times in callees:
-                runs[callee] = runs.get(callee, 0) + runs[caller] * times
-                todo.append(callee)
-    return runs
-
-
-def _hlo_dot_flops(text: str) -> list[int]:
-    """2 x (contracted size) x (result size) of every ``dot`` that one step
-    of compiled HLO text runs, whose operands are named, not shaped: a dot
-    in a loop's body once for each trip."""
-    dims = {m[1]: [int(d) for d in m[2].split(",") if d]
-            for m in re.finditer(r"%([\w.\-]+) = \w+\[([\d,]*)\]", text)}
-    comps, entry = _hlo_computations(text)
-    runs = _hlo_runs(comps, entry)
-    flops = []
-    for name, lines in comps.items():
-        for line in lines:
-            m = re.search(r"= \w+\[([\d,]*)\]\S* dot\(%([\w.\-]+), %[\w.\-]+\)(.*)", line)
-            if m is None:
-                continue
-            lhs = dims[m[2]]
-            contracted = re.search(r"lhs_contracting_dims=\{([\d,]*)\}", m[3])[1]
-            k = math.prod(lhs[int(d)] for d in contracted.split(",") if d)
-            flops += [2 * k * math.prod(int(d) for d in m[1].split(",") if d)] * runs.get(name, 0)
-    return sorted(flops)
-
-
-def _reference_products(arch: str, shape: ShapeConfig, override: dict | None = None) -> list[int]:
-    proc = subprocess.run([sys.executable, "-c", _REF_HLO, arch, str(shape.global_batch),
-                           str(shape.seq_len), json.dumps(override or {})],
-                          capture_output=True, text=True, timeout=600, check=False)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return _hlo_dot_flops(json.loads(proc.stdout.strip().splitlines()[-1]))
-
-
-def _smoke_cfg(arch: str, override: dict | None = None):
-    """SMOKE ``arch`` with ``override`` (a nested dict replaces fields of a
-    sub-config, as ``_REF_HLO`` reads it)."""
-    cfg = configs.get(arch, smoke=True).replace(unroll_layers=True)
-    for key, val in (override or {}).items():
-        cfg = cfg.replace(**{key: dataclasses.replace(getattr(cfg, key), **val)
-                             if isinstance(val, dict) else val})
-    return cfg
-
-
-def _port_products(fake_world, arch: str, shape: ShapeConfig,
-                   override: dict | None = None) -> list[int]:
-    """FLOPs of each product the port's train step runs on rank 0 of a
-    (2, 4) world, leaving out outer products (a contracted size of 1),
-    which XLA rewrites as elementwise multiplies."""
-    cfg = _smoke_cfg(arch, override)
-    fake_world(8)
-    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
-    with specs_mod.fake_mode():
-        sp = specs_mod.input_specs(cfg, shape, mesh)
-        graph = dryrun.lower(dryrun.make_step_fn(cfg, shape, mesh), sp["state"], sp["batch"])
-    return sorted(f for n in graph.nodes if (f := hlo.node_flops(n))
-                  and n.args[0].meta["val"].shape[-1] != 1)
-
-
-# mixtral at 4096 tokens: two routing groups of 2048, one a data rank (at
-# 128 tokens its one group is whole on both, and XLA splits the experts'
-# work over "data" where DTensor repeats it)
-@pytest.mark.parametrize("arch,shape", [
-    ("internlm2-1.8b", TINY_TRAIN), ("whisper-medium", TINY_TRAIN),
-    ("internvl2-2b", TINY_TRAIN), ("mixtral-8x7b", ShapeConfig("train_4k", "train", 512, 8))])
-def test_train_step_products_match_reference_on_2x4(fake_world, arch, shape):
-    """Exact: on a (2, 4) ("data", "model") mesh, a SMOKE train step runs the
-    same products per device as the reference's compiled step, each with the
-    same FLOPs (the sorted lists of per-product FLOPs are equal).  A product
-    that runs whole where the reference shards it (a weight gathered in place
-    of a partial sum reduced) shows here.  Collective counts are not held:
-    XLA combines and reorders collectives that DTensor issues one per
-    redistribution."""
-    ref = _reference_products(arch, shape)
-    assert ref and _port_products(fake_world, arch, shape) == ref
-
-
-def test_zamba2_train_step_flops_match_reference_on_2x4(fake_world):
-    """rel 1e-2 on the per-device total: zamba2's SSD einsums lower to other
-    products in XLA than in torch (unsharded, on (1, 1), the reference runs
-    21 more products of 32768 FLOPs, 0.27 % of the step); a product run
-    whole on every model rank adds tens of percent."""
-    ref = sum(_reference_products("zamba2-7b", TINY_TRAIN))
-    assert sum(_port_products(fake_world, "zamba2-7b", TINY_TRAIN)) == pytest.approx(ref, rel=1e-2)
-
-
-def test_mixtral_with_fewer_experts_than_model_ranks_matches_reference_on_2x4(fake_world):
-    """Exact but for one product a layer: mixtral with 2 experts (SMOKE
-    otherwise, top-k 2) on 4 model ranks, the geometry of 8 experts on 16.
-    The experts do not divide the model axis, so the reference's joint
-    assignment gives "model" to the hidden dim of the expert FFN ("mlp"),
-    and XLA runs a quarter of each expert's products on each model rank.
-    The port ran them whole (ROADMAP F8: 4x the expert FFN's FLOPs); its
-    per-shard expert FFN now takes the columns of the hidden dim that
-    ``h``'s placement gives it.  The one difference left: the router
-    weight's gradient [D, E], which XLA splits over model ranks that hold
-    the same tokens and the port computes whole on each (2 T D E against
-    T D E, one a layer, 0.004 % of the step)."""
-    shape, override = ShapeConfig("train_4k", "train", 512, 8), {"moe": {"n_experts": 2}}
-    ref = collections.Counter(_reference_products("mixtral-8x7b", shape, override))
-    port = collections.Counter(_port_products(fake_world, "mixtral-8x7b", shape, override))
-    cfg = _smoke_cfg("mixtral-8x7b", override)
-    tokens = shape.global_batch * shape.seq_len // 2  # a data rank's
-    router = 2 * tokens * cfg.d_model * 2
-    assert port - ref == collections.Counter({router: cfg.n_layers})
-    assert ref - port == collections.Counter({router // 2: cfg.n_layers})
-
-
-def test_xlstm_train_step_flops_match_reference_on_2x4(fake_world):
-    """port/ref = 1.0541 +- 5e-3 on the per-device total, SMOKE xlstm with 4
-    heads (one a model rank; SMOKE has 2, below).  The reference's scans over time and
-    chunks are XLA loops, counted once a trip.  The port's two loops are
-    single ops whose backward runs the loop again (the mLSTM's by autograd,
-    the sLSTM's pre-activations by hand): one more forward of their
-    products than the reference's, 3.6 % of the step; DTensor splits the
-    sLSTM FFN's 85 columns 22/22/22/19 over the model ranks where XLA
-    splits its contraction (+0.6 %); other small products differ in shape
-    (+1.3 %), +5.41 % in all (1.054121 measured with jax 0.9.0 on the CPU).
-    The band is narrow so that a product that goes missing or runs whole
-    shows: a product run whole on every model rank adds tens of percent
-    (2 heads, below)."""
-    override = {"n_heads": 4}
-    ref = sum(_reference_products("xlstm-1.3b", TINY_TRAIN, override))
-    port = sum(_port_products(fake_world, "xlstm-1.3b", TINY_TRAIN, override))
-    assert port / ref == pytest.approx(1.0541, abs=5e-3), port / ref
-
-
-def test_xlstm_heads_that_do_not_divide_the_model_axis_run_whole(fake_world):
-    """ROADMAP F9 (open), held as measured so that a fix shows: SMOKE
-    xlstm's 2 heads on 4 model ranks are left whole on every rank (the
-    rules cannot split 2 heads 4 ways, and DTensor cannot shard a dim over
-    part of a mesh axis), where XLA splits each head 2 ways and its value
-    dim 2 ways.  The port's products are 2.0869 times the reference's."""
-    ref = sum(_reference_products("xlstm-1.3b", TINY_TRAIN))
-    port = sum(_port_products(fake_world, "xlstm-1.3b", TINY_TRAIN))
-    assert port / ref == pytest.approx(2.0869, abs=1e-2), port / ref
+# --- (j) the placements against the reference's: tests/test_torch_placements.py ------------
 
 
 # --- (f) the roofline ------------------------------------------------------------------
@@ -676,3 +461,31 @@ def test_flash_prefill_traces_through_the_kernel(smoke, fake_world):
     assert [hlo.node_flops(n) for n in flash] == [per_layer] * cfg.n_layers
     assert rec["cost"]["flops"] == hlo.cost_analysis_dict(graph)["flops"]
     assert rec["cost"]["flops"] > per_layer * cfg.n_layers
+
+
+def test_xlstm_value_split_moves_no_more_bytes_than_heads_whole(monkeypatch):
+    """xLSTM's value split (ROADMAP F9: 4 heads on 16 model ranks, the
+    geometry of xlstm-1.3b on (16, 16)), at d 256 on a fake (2, 16) world:
+    a train step runs fewer FLOPs a rank than with each head whole on every
+    model rank, and moves no more wire bytes.  Its sums run over a head's 4
+    ranks alone; the first split summed zero-padded tensors over all 16 and
+    moved 1.25x the heads-whole bytes here (1.60x at full size, PERF.md)."""
+    from repro_torch.configs.base import XLSTMConfig
+    from repro_torch.models import xlstm
+
+    small = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, vocab_size=512,
+                 xlstm=XLSTMConfig(slstm_every=2, conv_width=4, chunk_size=16,
+                                   proj_factor=2.0))
+
+    def cell():
+        rec = dryrun.run_cell("xlstm-1.3b", "train_4k", "single", cfg_override=small,
+                              shape=ShapeConfig("train_4k", "train", 128, 4),
+                              mesh_shape=(2, 16), save=False, device="cpu")
+        assert rec["status"] == "ok", rec.get("traceback")
+        return rec["cost"]["flops"], rec["collectives"]["_total"]["wire_bytes_per_device"]
+
+    split = cell()
+    monkeypatch.setattr(xlstm, "_value_split_dim", lambda *a: None)
+    whole = cell()
+    assert split[0] < whole[0] / 1.5, (split, whole)
+    assert split[1] <= whole[1], (split, whole)

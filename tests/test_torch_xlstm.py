@@ -7,10 +7,13 @@ bridge; the regression pins of ``tests/models/test_xlstm_regression.py`` use
 the reference's own init, bridged, as the pins do.  Inputs are seeded numpy.
 Tolerances are the reference's: the cells in f32 at rtol = atol = 2e-5,
 logits at the end of the stack at 1e-4, one bf16 block at 2e-2 (relative L2).
-The two loops are ops (``repro_torch::mlstm_chunkwise``, ``::slstm_scan``):
-the sLSTM op's backward (torch.func's vjp of its loop) is held against
-autograd through its step loop at 2e-5 and against ``jax.grad`` at 1e-4, and both ops' FLOP formulas
-equal the products their loops count, exactly.
+The two loops are ops (``repro_torch::mlstm_chunkwise``, ``::slstm_scan``)
+whose backward ops are written by hand from the residuals their forwards
+save: each is held against autograd through its plain loop at 2e-5 (and
+the sLSTM's and, through the regression pins, the mLSTM's against
+``jax.grad`` at 1e-4); both ops' FLOP formulas equal the products their
+loops count, exactly, and a SMOKE train step traced on a (1, 1) fake world
+counts what ``FlopCounterMode`` counts around it on real tensors.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_xlstm.py
 """
@@ -519,10 +522,11 @@ def _slstm_inputs(seed, Bsz=2, S_=9, H=2, dh=8, given_state=False):
 
 @pytest.mark.parametrize("given_state", [False, True])
 def test_slstm_scan_gradient_equals_autograd_through_the_steps(given_state):
-    """rtol = atol = 2e-5: the op's backward (torch.func's vjp of the loop,
-    inside the op) against autograd through :func:`xlstm._slstm_steps`, for an upstream
-    gradient on all four stacked outputs, from the zero state (n = 1 ties
-    torch.maximum at the first step, m = -inf) and from a given one."""
+    """rtol = atol = 2e-5: the op's backward (by hand through time, from the
+    pre-activations its forward saved) against autograd through
+    :func:`xlstm._slstm_steps`, for an upstream gradient on all four stacked
+    outputs, from the zero state (n = 1 ties torch.maximum at the first
+    step, m = -inf) and from a given one."""
     wx, R, state = _slstm_inputs(11, given_state=given_state)
     leaves = [t.clone().requires_grad_() for t in (*wx, *R, *state)]
     gen = torch.Generator().manual_seed(2)
@@ -532,11 +536,43 @@ def test_slstm_scan_gradient_equals_autograd_through_the_steps(given_state):
         outs = fn(tuple(leaves[:4]), tuple(leaves[4:8]), tuple(leaves[8:]))
         return torch.autograd.grad(outs, leaves, ups, allow_unused=True, materialize_grads=True)
 
-    got = grads(lambda wx, R, st: torch.ops.repro_torch.slstm_scan(*wx, *R, *st))
+    got = grads(xlstm.slstm_scan)
     want = grads(xlstm._slstm_steps)
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         torch.testing.assert_close(g, w, **CELL)
+
+
+@pytest.mark.parametrize("S", [32, 37])
+@pytest.mark.parametrize("given_state", [False, True])
+def test_mlstm_chunkwise_gradient_equals_autograd_through_the_chunks(S, given_state):
+    """rtol 2e-5 and atol 2e-5 or 1e-6 of the gradient's largest entry: the
+    op's backward (by hand through the chunks, from the states and products
+    its forward saved) against autograd through :func:`xlstm._mlstm_chunks`,
+    for an upstream gradient on h and the final state, S a multiple of the
+    chunk (16) and ragged, from the zero state (m = -inf) and from a given
+    one.  The gates' spread makes gradients of several hundred, whose f32
+    sums differ by their order: both differ from a float64 gradient by
+    about 1e-5 of that scale, and from each other by well under 1e-6 of it."""
+    inputs = _mlstm_inputs(S, seed=9)
+    state = (_state(10) if given_state
+             else tuple(t.numpy() for t in xlstm.initial_mlstm_state(2, 2, 8, 16, "cpu")))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (*inputs, *state)]
+    gen = torch.Generator().manual_seed(3)
+    ups = [torch.randn(shape, generator=gen) for shape in ((2, 2, S, 16), (2, 2, 8, 16),
+                                                            (2, 2, 8), (2, 2))]
+
+    def grads(fn):
+        h, final = fn(*leaves[:5], tuple(leaves[5:]))
+        return torch.autograd.grad((h, *final), leaves, ups, allow_unused=True,
+                                   materialize_grads=True)
+
+    got = grads(lambda *a: xlstm.mlstm_chunkwise(*a[:5], chunk=16, state=a[5],
+                                                 return_state=True))
+    want = grads(lambda *a: xlstm._mlstm_chunks(*a[:5], 16, a[5]))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=max(2e-5, 1e-6 * float(w.abs().max())))
 
 
 def test_slstm_cell_gradient_matches_jax():
@@ -575,8 +611,11 @@ def test_slstm_cell_gradient_matches_jax():
 
 def test_loop_ops_count_the_products_of_their_loops():
     """Exact: ``FlopCounterMode`` counts each op by its formula, and the
-    formula is what the plain loop's products count, forward and backward
-    (each backward by torch.func's vjp, which runs the loop again)."""
+    formula is what the plain loop's products count, forward and backward.
+    A backward runs no product of its forward again: it runs two products
+    for each of the forward's, but for the mLSTM's q n0 and n update, whose
+    gradients are in part outer products and broadcasts (6 Q K a chunk
+    fewer)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     def count(fn, *a):
@@ -586,35 +625,56 @@ def test_loop_ops_count_the_products_of_their_loops():
 
     q, k, v, i, f = (torch.from_numpy(a) for a in _mlstm_inputs(37))
     st = xlstm.initial_mlstm_state(2, 2, 8, 16, "cpu")
-
-    def fwd(*a):
-        h, final = xlstm._mlstm_chunks(*a[:5], 16, a[5:])
-        return (h, *final)
-
-    plain, outs = count(fwd, q, k, v, i, f, *st)
-    assert count(torch.ops.repro_torch.mlstm_chunkwise, q, k, v, i, f, *st, 16)[0] == plain
-
-    def fwd_bwd():
-        outs, vjp = torch.func.vjp(fwd, q, k, v, i, f, *st)
-        return vjp(tuple(torch.ones_like(o) for o in outs))
-
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    with FakeTensorMode(allow_non_fake_inputs=True):
-        back = count(torch.ops.repro_torch.mlstm_chunkwise_backward, q, k, v, i, f, *st, 16,
-                     *(torch.ones_like(o) for o in outs))[0]
-    assert back == count(fwd_bwd)[0] == 3 * plain
+    saved = []
+    plain, (h, final) = count(xlstm._mlstm_chunks, q, k, v, i, f, 16, st, saved)
+    op, outs = count(torch.ops.repro_torch.mlstm_chunkwise, q, k, v, i, f, *st, 16, True)
+    assert op == plain
+    residuals = [torch.stack(t, dim=2) for t in zip(*saved)]
+    for got, want in zip(outs, (h, *final, *residuals)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    ups = (torch.ones_like(h), *(torch.ones_like(t) for t in final))
+    plain_back = count(xlstm._mlstm_chunks_backward, q, k, v, i, f, 16, residuals, *ups)[0]
+    back = count(torch.ops.repro_torch.mlstm_chunkwise_backward, q, k, v, i, f, *residuals, 16,
+                 *ups)[0]
+    nc, Q, K = 3, 16, 8
+    assert back == plain_back == 2 * plain - 2 * 2 * nc * 6 * Q * K
 
     wx, R, state = _slstm_inputs(12)
-    plain, stacks = count(xlstm._slstm_steps, wx, R, state)
-    assert count(torch.ops.repro_torch.slstm_scan, *wx, *R, *state)[0] == plain
+    pre = []
+    plain, stacks = count(xlstm._slstm_steps, wx, R, state, pre)
+    op, outs = count(torch.ops.repro_torch.slstm_scan, *wx, *R, *state, True)
+    assert op == plain
+    pre = tuple(torch.stack(p, dim=1) for p in zip(*pre))
     ups = tuple(torch.ones_like(s) for s in stacks)
+    plain_back = count(xlstm._slstm_steps_backward, R, state, pre, stacks, ups)[0]
+    back = count(torch.ops.repro_torch.slstm_scan_backward, *R, *state, *stacks,
+                 torch.stack(pre), *ups)[0]
+    assert back == plain_back == 2 * plain
 
-    def steps_bwd():
-        _, vjp = torch.func.vjp(lambda *a: xlstm._slstm_steps(a[:4], a[4:8], a[8:]),
-                                *wx, *R, *state)
-        return vjp(ups)
 
-    with FakeTensorMode(allow_non_fake_inputs=True):
-        back = count(torch.ops.repro_torch.slstm_scan_backward, *wx, *R, *state, *ups)[0]
-    assert back == count(steps_bwd)[0] == 3 * plain
+def test_train_step_flops_equal_flop_counter_on_real_tensors(monkeypatch):
+    """Exact: a SMOKE xLSTM train step traced on a fake (1, 1) world counts
+    the FLOPs ``FlopCounterMode`` counts around the same step run on real
+    CPU tensors without DTensor (each loop op and its backward by its
+    formula), as ``tests/test_torch_dryrun.py`` (e) holds internlm2's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shape = ShapeConfig("train_4k", "train", seq_len=32, global_batch=4)
+    get = configs.get
+    monkeypatch.setattr(configs, "get", lambda arch, smoke=True: get(arch, smoke=True))
+    rec = dryrun.run_cell(ARCH, "train_4k", "single", device="cpu", shape=shape,
+                          mesh_shape=(1, 1), save=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+
+    cfg = configs.get(ARCH, smoke=True)
+    model = Model(cfg)
+    state = loop.init_state(model, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len))
+    step = loop.make_train_step(model, TrainConfig())
+    with FlopCounterMode(display=False) as counter:
+        step(state, {"tokens": tokens, "labels": tokens})
+    assert counter.get_total_flops() > 0
+    assert rec["cost"]["flops"] == counter.get_total_flops()
