@@ -97,9 +97,12 @@ Phases, each of which raises on failure (a non-zero exit):
               xlstm-1.3b decode_32k must end ok, each with its roofline row,
               and the xLSTM cells and mixtral's decode under a ceiling of
               FLOPs a card (``DRYRUN_FLOP_CEILINGS``); each xLSTM cell is
-              traced again with each head whole on its model ranks, and its
-              wire bytes a card may exceed neither that trace's nor, for
-              train_4k, ``DRYRUN_WIRE_CEILINGS``; then phase 10's step traced on a (1, 1) world, whose
+              traced again with each head whole on its model ranks (every
+              split of xLSTM's work over a head's ranks off), printed with
+              its count of collectives and temp memory beside that trace's,
+              and its wire bytes a card may exceed neither that trace's nor,
+              for train_4k and decode_32k, ``DRYRUN_WIRE_CEILINGS``; then
+              phase 10's step traced on a (1, 1) world, whose
               compute term may not exceed phase 10's measured median step.
 
 The last seven lines of standard output are the xLSTM, training, shard and
@@ -2037,11 +2040,12 @@ def shard() -> dict:
 # prefill, the long-context decode whose cache shards its sequence over the
 # 512-rank mesh's ("pod", "data"), a prefill traced through the flash
 # kernel's custom op, xLSTM's training (its loops as single ops, ROADMAP F6;
-# its 4 heads' value dims split over 16 model ranks, F9; its loops' backward
-# from saved residuals, F13), whisper's prefill (its caches on the mesh,
-# F7), mixtral's decode (its 128 tokens one routing group, whose expert work
-# the data ranks split, F11) and xLSTM's decode (its value projection on a
-# data rank's rows, F12)
+# each of its 4 heads' value dims and sLSTM columns split over 4 of the 16
+# model ranks, F9; its loops' backward from saved residuals, F13), whisper's
+# prefill (its caches on the mesh, F7), mixtral's decode (its 128 tokens one
+# routing group, whose expert work the data ranks split, F11) and xLSTM's
+# decode (its value projection on a data rank's rows, F12; the mLSTM's
+# value split with its state kept sliced in the cache, F14)
 DRYRUN_CELLS = (
     ("internlm2-1.8b", "train_4k", "single", None),
     ("mixtral-8x7b", "prefill_32k", "single", None),
@@ -2060,12 +2064,13 @@ DRYRUN_FLOP_CEILINGS = {
     "mixtral-8x7b__decode_32k__single": 1e11,
     "xlstm-1.3b__decode_32k__single": 1e10,
 }
-# wire bytes a card that a cell may not exceed: xlstm-1.3b train_4k's with
-# each head whole on every model rank, as before F9, which F9's value split
-# may not raise.  Every xLSTM cell is also traced with the split off (_heads_whole)
-# and may not move more bytes than that trace.
+# wire bytes a card that a cell may not exceed: xlstm-1.3b's with each head
+# whole on every model rank, as before F9 (train_4k) and F14 (decode_32k),
+# which the splits may not raise.  Every xLSTM cell is also traced with the
+# splits off (_heads_whole) and may not move more bytes than that trace.
 DRYRUN_WIRE_CEILINGS = {
     "xlstm-1.3b__train_4k__single": 250951.2 * 2 ** 20,
+    "xlstm-1.3b__decode_32k__single": 284.0 * 2 ** 20,
 }
 DRYRUN_FLASH_CELL = "internlm2-1.8b__prefill_32k__single__flash"
 # phase 10's step traced on (1, 1) against FlopCounterMode around a real step
@@ -2086,20 +2091,25 @@ def _dryrun_record(rec: dict, row: dict) -> dict:
 
 
 def _heads_whole(arch: str, shape: str, mesh: str) -> dict:
-    """The cell traced with xLSTM's value split off (each head whole on
-    every model rank, as before F9): its FLOPs, wire and temp bytes a card."""
+    """The cell traced with every split of xLSTM's work over a head's ranks
+    off (``xlstm._head_split``: the mLSTM's value split in every step, the
+    sLSTM's recurrence split; each head whole on every model rank, as
+    before F9 and F14): its FLOPs, wire and temp bytes and count of
+    collectives a card."""
     from unittest import mock
 
     from repro_torch.launch import dryrun as dr
     from repro_torch.models import xlstm
 
-    with mock.patch.object(xlstm, "_value_split_dim", lambda *a: None):
+    with mock.patch.object(xlstm, "_head_split", lambda *a: None):
         rec = dr.run_cell(arch, shape, mesh, tag="heads_whole", device="cuda")
     check(rec["status"] == "ok", f"dry-run of {arch} x {shape} with heads whole failed:\n"
                                  f"{rec.get('traceback')}")
     return {"flops": rec["cost"]["flops"],
             "wire_bytes": rec["collectives"]["_total"]["wire_bytes_per_device"],
-            "temp_bytes": rec["memory"]["temp_size_in_bytes"]}
+            "temp_bytes": rec["memory"]["temp_size_in_bytes"],
+            "temp_at_peak": rec["memory"]["temp_at_peak"],
+            "collectives": rec["collectives"]["_total"]["count"]}
 
 
 def dryrun(training: dict) -> dict:
@@ -2148,9 +2158,17 @@ def dryrun(training: dict) -> dict:
         if arch == "xlstm-1.3b":
             out[name]["heads_whole"] = whole = _heads_whole(arch, shape, mesh)
             print(f"    with each head whole on its model ranks: {whole['flops']:.4e} FLOPs, "
-                  f"{whole['wire_bytes'] / 2 ** 20:.1f} MiB on the wire, temp "
+                  f"{whole['wire_bytes'] / 2 ** 20:.1f} MiB on the wire, "
+                  f"{whole['collectives']} collectives, temp "
                   f"{whole['temp_bytes'] / 2 ** 30:.2f} GiB a card (split: "
+                  f"{rec['cost']['flops']:.4e} FLOPs, {wire / 2 ** 20:.1f} MiB, "
+                  f"{rec['collectives']['_total']['count']} collectives, temp "
                   f"{rec['memory']['temp_size_in_bytes'] / 2 ** 30:.2f} GiB)")
+            for what, at_peak in (("split", rec["memory"]["temp_at_peak"]),
+                                  ("heads whole", whole["temp_at_peak"])):
+                for e in at_peak[:4]:
+                    print(f"      {what}, live at the temp peak: {e['bytes'] / 2 ** 30:.3f} GiB "
+                          f"in {e['count']} x {e['op']} {e['shape']} {e['dtype']}")
             check(wire <= whole["wire_bytes"], f"{name}: the value split moves "
                   f"{wire / 2 ** 20:.1f} MiB a card, more than its heads whole "
                   f"({whole['wire_bytes'] / 2 ** 20:.1f})")

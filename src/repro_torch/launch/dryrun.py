@@ -17,7 +17,8 @@ time it runs: a layer loop is counted at full depth (the reference unrolls
 its scans for the same reason), the backward once, and remat's recompute
 where it happens.  xLSTM's loops over chunks and over time are the
 exception: each is one op with a FLOP formula, one node a call, as each is
-one loop in the reference's compiled step.  :mod:`repro_torch.launch.hlo`
+one loop in the reference's compiled step; the sLSTM's, where it gathers
+among a head's ranks every step, also registers those collectives.  :mod:`repro_torch.launch.hlo`
 reads the graph.
 
 Usage::

@@ -13,6 +13,12 @@ device, as the reference's post-SPMD counts are.
   result bytes, and the wire bytes of the standard ring algorithms (an
   all-reduce moves ~2x its operand, every other collective the larger of its
   operand and result), in the reference's schema and under its op names.
+  An op that runs collectives inside it (the sLSTM's loop, which gathers
+  among a head's ranks every step) adds those its registered formula
+  counts (``sharding.register_collective_formula``): its fake
+  implementation, which the trace runs, runs none.  Every collective that
+  runs counts, a loop's once a trip, where the reference's HLO analysis
+  counts a while loop's body once.
 * :func:`cost_analysis_dict`: ``flops`` from ``torch.utils.flop_counter``'s
   formulas (matmuls, convolutions, attention; the hand kernels register
   theirs in :mod:`repro_torch.kernels.ops`) and ``bytes accessed``, the
@@ -90,24 +96,40 @@ def collective_name(target) -> str | None:
     return COLLECTIVES.get(_opname(target))
 
 
+def _collectives_of(node: torch.fx.Node) -> list[tuple[str, int, int, int]]:
+    """(name, count, operand bytes, result bytes) of the collectives one op
+    runs: a ``_c10d_functional`` collective itself, or those an op runs
+    inside it by its registered formula
+    (``sharding.register_collective_formula``)."""
+    from repro_torch.parallel.sharding import COLLECTIVE_FORMULAS
+
+    base = collective_name(node.target)
+    if base is not None:
+        return [(base, 1, _input_bytes(node), _nbytes(node.meta.get("val")))]
+    formula = COLLECTIVE_FORMULAS.get(getattr(node.target, "overloadpacket", None))
+    if formula is None:
+        return []
+    args, kwargs = _arg_vals(node)
+    return formula(*args, **kwargs)
+
+
 def analyze_collectives(graph: torch.fx.Graph, top_n: int = 12) -> dict:
-    """Per-collective stats of one rank's graph (per-device bytes)."""
+    """Per-collective stats of one rank's graph (per-device bytes).  An op
+    that runs ``count`` collectives inside it adds ``count`` to its kind's
+    count and one entry to the top ops, its bytes summed over them."""
     stats: dict[str, dict] = defaultdict(
         lambda: {"count": 0, "operand_bytes": 0, "result_bytes": 0})
     ops: list[dict] = []
     for node in _ops(graph):
-        base = collective_name(node.target)
-        if base is None:
-            continue
-        operand = _input_bytes(node)
-        res = _nbytes(node.meta.get("val"))
-        rec = stats[base]
-        rec["count"] += 1
-        rec["operand_bytes"] += operand
-        rec["result_bytes"] += res
-        wire = 2 * operand if base == "all-reduce" else max(operand, res)
-        ops.append({"op": base, "name": node.name, "operand_bytes": operand,
-                    "result_bytes": res, "wire_bytes": wire})
+        for base, count, operand, res in _collectives_of(node):
+            rec = stats[base]
+            rec["count"] += count
+            rec["operand_bytes"] += count * operand
+            rec["result_bytes"] += count * res
+            wire = 2 * operand if base == "all-reduce" else max(operand, res)
+            ops.append({"op": base, "name": node.name, "count": count,
+                        "operand_bytes": count * operand, "result_bytes": count * res,
+                        "wire_bytes": count * wire})
     out = dict(stats)
     out["_total"] = {
         "count": sum(r["count"] for r in stats.values()),
@@ -175,7 +197,7 @@ def _storage(t: torch.Tensor) -> tuple[int, int]:
     return st._cdata, st.nbytes()
 
 
-def memory_analysis(graph: torch.fx.Graph) -> dict:
+def memory_analysis(graph: torch.fx.Graph, top_n: int = 8) -> dict:
     """Per-device bytes in the reference's ``memory_analysis()`` keys.
 
     ``argument``: the storages of the step's arguments (placeholders marked
@@ -183,9 +205,12 @@ def memory_analysis(graph: torch.fx.Graph) -> dict:
     ``alias``: the output storages that are argument storages (updated in
     place); ``temp``: the peak, over the graph's order, of the storages the
     ops create that are live at once, each from the op that creates it to
-    the last op that reads it (outputs and arguments excluded)."""
+    the last op that reads it (outputs and arguments excluded).  Beyond the
+    reference's keys, ``temp_at_peak``: the storages live at that peak,
+    summed by the op that made them and their shape and dtype, the
+    ``top_n`` largest (op, shape, dtype, count, bytes)."""
     args: dict[int, int] = {}
-    first: dict[int, tuple[int, int]] = {}  # storage -> (index created, bytes)
+    first: dict[int, tuple[int, int, tuple]] = {}  # storage -> (index created, bytes, what)
     last: dict[int, int] = {}
     outputs: dict[int, int] = {}
     order = list(graph.nodes)
@@ -207,21 +232,35 @@ def memory_analysis(graph: torch.fx.Graph) -> dict:
                 last[_storage(t)[0]] = i
         for t in _tensors(node.meta.get("val")):
             key, size = _storage(t)
-            first.setdefault(key, (i, size))
+            first.setdefault(key, (i, size, (str(node.target), tuple(t.shape),
+                                              str(t.dtype).removeprefix("torch."))))
     events: dict[int, int] = defaultdict(int)
-    for key, (i, size) in first.items():
+    spans = []
+    for key, (i, size, what) in first.items():
         if key in args or key in outputs:
             continue
+        end = max(last.get(key, i), i) + 1
         events[i] += size
-        events[max(last.get(key, i), i) + 1] -= size
-    live = peak = 0
+        events[end] -= size
+        spans.append((i, end, size, what))
+    live = peak = peak_at = 0
     for i in sorted(events):
         live += events[i]
-        peak = max(peak, live)
+        if live > peak:
+            peak, peak_at = live, i
+    at_peak: dict[tuple, list] = {}
+    for i, end, size, what in spans:
+        if i <= peak_at < end:
+            entry = at_peak.setdefault(what, [0, 0])
+            entry[0] += 1
+            entry[1] += size
+    top = sorted(at_peak.items(), key=lambda kv: -kv[1][1])[:top_n]
     return {
         "argument_size_in_bytes": sum(args.values()),
         "output_size_in_bytes": sum(outputs.values()),
         "alias_size_in_bytes": sum(size for key, size in outputs.items() if key in args),
         "temp_size_in_bytes": peak,
         "generated_code_size_in_bytes": None,
+        "temp_at_peak": [{"op": op, "shape": list(shape), "dtype": dtype, "count": n,
+                          "bytes": b} for (op, shape, dtype), (n, b) in top],
     }

@@ -219,9 +219,18 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
     with fake_mode():
         caches = Model(cfg).init_cache(shape.global_batch, shape.seq_len,
                                        device=_device(mesh))
-        return _map_cache(
+        placed = _map_cache(
             lambda t, ax: _place(t, _at(mesh, logical_spec(ax, rules, tuple(t.shape), mesh))),
             caches, cache_axes(cfg))
+        if cfg.family == "ssm":
+            # the mLSTM's state where its value split keeps it, as a step leaves it
+            with sh.use_rules(PARAM_RULES, rules):
+                for name in ("C", "n", "m"):
+                    t = caches["mlstm"][name]
+                    where = xlstm_mod.mlstm_state_sharding(cfg, name, tuple(t.shape), mesh)
+                    if where is not None:
+                        placed["mlstm"][name] = _place(t, where)
+        return placed
 
 
 def decode_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,

@@ -492,14 +492,15 @@ def init_xlstm_cache(cfg: ModelConfig, batch: int, dtype, device):
     """Zeroed decode caches stacked like the params: ``mlstm`` {conv, C, n, m}
     [n_super, n_m, ...] and ``slstm`` {"state": (h, c, n, m)} [n_super, ...].
     Under an active mesh they are DTensors placed by their cache axes behind
-    ``("blocks", "layers")`` and ``("blocks",)``."""
+    ``("blocks", "layers")`` and ``("blocks",)``, the mLSTM's state where
+    its value split keeps it (``xlstm.mlstm_state_sharding``)."""
     n_super, n_m = xlstm_structure(cfg)
     one = xlstm_mod.init_mlstm_cache(cfg, batch, dtype, device)
     state = xlstm_mod.init_slstm_state(cfg, batch, device)
-    m_axes, s_axes = xlstm_mod.mlstm_cache_axes(), xlstm_mod.slstm_state_axes()
+    s_axes = xlstm_mod.slstm_state_axes()
     return {
-        "mlstm": {k: distribute_input(v.expand(n_super, n_m, *v.shape).clone(),
-                                      "blocks", "layers", *m_axes[k])
+        "mlstm": {k: xlstm_mod.distribute_mlstm_cache(cfg, k, v.expand(n_super, n_m, *v.shape)
+                                                      .clone(), "blocks", "layers")
                   for k, v in one.items()},
         "slstm": {"state": tuple(distribute_input(t.expand(n_super, *t.shape).clone(),
                                                   "blocks", *a)

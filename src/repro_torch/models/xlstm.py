@@ -13,7 +13,11 @@ Each of the two loops is one ``torch.library`` op with a FLOP formula
 (``repro_torch::mlstm_chunkwise``, ``repro_torch::slstm_scan``, and their
 backward ops), so that a traced step records a loop as one node, as XLA
 keeps a scan as one loop; on real tensors each runs the same loop of plain
-ops.  Under a mesh each runs per rank on its batch rows and heads.
+ops.  Under a mesh each runs per rank on its batch rows and heads or, where
+the heads do not take the model axis but divide it, on a rank's block of
+one head's columns: the mLSTM's value dim (its state kept so sliced in the
+decode cache), the sLSTM's head dim (its loop gathering h among the head's
+ranks every step).
 
 Cell equations (mLSTM, per head; q,k in R^K, v in R^V):
     logf_t = logsigmoid(f~_t)
@@ -509,11 +513,9 @@ def apply_mlstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     i_gate = gates[..., :H].transpose(1, 2)
     f_gate = gates[..., H:].transpose(1, 2)
 
-    # at decode the split would sum the whole state over the model ranks
-    # every step: a head's ranks run it whole there
-    split = _value_split_dim(c, H, Kd, Vd) if cache is None else None
+    split = _head_split(_mesh_of(c), H, Vd)
     if split is not None:
-        h, final = _mlstm_value_split(params, cfg, split, c, u, i_gate, f_gate,
+        h, final = _mlstm_value_split(params, cfg, split, c, u, i_gate, f_gate, cache,
                                       return_state=return_cache)
     else:
         h, final = _mlstm_heads(params, cfg, c, u, i_gate, f_gate, cache, return_cache)
@@ -564,41 +566,107 @@ def _mlstm_heads(params, cfg: ModelConfig, c, u, i_gate, f_gate, cache, return_c
     return attn._merge_heads(h32 * torch.rsqrt(var + cfg.norm_eps)), final
 
 
-def _value_split_dim(c, H: int, Kd: int, Vd: int) -> int | None:
-    """The mesh dim whose ranks split each head's value dim (ROADMAP F9):
-    the one the rules give the heads (``"lstm_heads"``) where the H heads
-    cannot take it, if H divides its size M and each head's value dim
-    divides among the M / H ranks the head gets.  None on plain tensors and
-    on every other mesh."""
-    if not sharding.is_dtensor(c):
+def _mesh_of(x):
+    return x.device_mesh if sharding.is_dtensor(x) else None
+
+
+def _head_split(mesh, H: int, width: int) -> tuple[int, int] | None:
+    """(d, r): the mesh dim d whose ranks split each of an xLSTM block's H
+    heads, r = M / H of them a head (ROADMAP F9).  It is the one dim the
+    rules give the heads (``"lstm_heads"``) where the heads cannot take it,
+    if H divides its size M and each head's ``width`` (the mLSTM's value
+    dim, the sLSTM's head dim) divides by r.  Rank j along it then holds
+    head j // r and the (j % r)-th block of its columns, which the rules'
+    ``"lstm_inner"`` split of the H * width columns gives it.  None on no
+    mesh and on every other mesh."""
+    if mesh is None:
         return None
-    mesh = c.device_mesh
-    qp = sharding.act_placements(c.new_empty(()).expand(c.shape[0], H, c.shape[1], Kd),
-                                 "batch", "lstm_heads", "seq", None)
-    dims = sharding.untaken_axes(qp, mesh, "lstm_heads")
+    rules = sharding.active_rules()[1] or sharding.ACT_RULES
+    spec = sharding.assign_spec(("lstm_heads",), (H,), rules, sharding.mesh_axis_sizes(mesh))
+    dims = sharding.untaken_axes(sharding.placements(spec, mesh, (H,)), mesh, "lstm_heads")
     if len(dims) != 1:
         return None
     size = mesh.size(dims[0])
-    return dims[0] if size % H == 0 and Vd % (size // H) == 0 else None
+    r = size // H
+    return (dims[0], r) if size % H == 0 and width % r == 0 else None
 
 
-def _at(t, index: int, count: int, dim: int):
-    """``t`` in slot ``index`` of ``count`` along ``dim`` (its size there one
-    slot's), zeros in the others."""
-    zeros = torch.zeros_like(t)
-    return torch.cat([t if i == index else zeros for i in range(count)], dim=dim)
+def _head_mesh(mesh, dim: int, r: int):
+    """``mesh`` with dim ``dim`` unflattened into (heads, run of r): its
+    coordinate j becomes (j // r, j % r).  On it a DTensor shards two
+    tensor dims, the heads and a head's columns, where one mesh dim cannot
+    (DTensor puts one placement on a mesh dim); torch's ``DeviceMesh`` does
+    the unflattening (checked on 2.11 and 2.13).  Made once a mesh, by
+    every rank."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    meshes = mesh.__dict__.setdefault("_head_meshes", {})
+    if (dim, r) not in meshes:
+        name = mesh.mesh_dim_names[dim]
+        with _disable_current_modes():  # the mesh's own tensors are real under a trace
+            meshes[dim, r] = mesh._unflatten(dim, (mesh.size(dim) // r, r),
+                                             (f"{name}_heads", f"{name}_run"))
+    return meshes[dim, r]
 
 
-def _mlstm_value_split(params, cfg: ModelConfig, dim: int, c, u, i_gate, f_gate,
-                       return_state: bool = False):
-    """:func:`_mlstm_heads` over the whole sequence where the H heads do not
-    take the model axis but divide it (mesh dim ``dim``, M ranks): rank j
-    holds head j // (M/H) and the (j % (M/H))-th slice of its value dim, the
-    columns of the inner dim [B,S,Di] that the rules' ``"lstm_inner"`` split
-    gives it.  The mLSTM is independent across the value dim but for the
-    per-head norm.  Per rank (``local_map``), from c and u, which are whole
-    on every rank: the head's q and k, the rank's columns of its v, the
-    chunk loop, and the norm by the head's variance, summed over the head's
+def mlstm_state_sharding(cfg: ModelConfig, name: str, shape: tuple, mesh):
+    """Where a decode cache leaf of the mLSTM (``name`` "C", "n" or "m", of
+    ``shape``, its leading dims stacking layers) lives on ``mesh`` when the
+    value split is taken: on :func:`_head_mesh`, its batch dim as the rules
+    place it, its heads dim over the heads and, for C, its value dim over a
+    head's run, so that each rank keeps the [B, 1, Kd, Vd / r] slice its
+    decode steps update (n and m whole on a head's ranks, which compute the
+    same values for them).  The view of C as prefill's [B, Kd, H * Vd],
+    sharded along its last dim, would need a reshape at every boundary of
+    the cache, and a DTensor's reshape across a sharded dim gathers it; on
+    the unflattened mesh C keeps the reference's [B, H, Kd, Vd] as it is,
+    and ``full_tensor()`` gives its values.  None where the split is not
+    taken (the rules place the leaf)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    d_inner, H, Kd, Vd = mlstm_dims(cfg)
+    split = _head_split(mesh, H, Vd)
+    if split is None:
+        return None
+    dim, r = split
+    axes = mlstm_cache_axes()[name]
+    lead = len(shape) - len(axes)
+    rules = sharding.active_rules()[1] or sharding.ACT_RULES
+    p = sharding.placements(sharding.assign_spec((None,) * lead + axes, tuple(shape), rules,
+                                                 sharding.mesh_axis_sizes(mesh)),
+                            mesh, tuple(shape))
+    run = Shard(lead + 3) if name == "C" else Replicate()
+    return sharding.Sharding(_head_mesh(mesh, dim, r),
+                             p[:dim] + (Shard(lead + 1), run) + p[dim + 1:])
+
+
+def distribute_mlstm_cache(cfg: ModelConfig, name: str, t: torch.Tensor, *lead_axes):
+    """A decode cache leaf of the mLSTM (``name`` of :func:`mlstm_cache_axes`,
+    the same on every rank, its leading dims stacking layers by
+    ``lead_axes``) placed on the active mesh: where the value split keeps it
+    (:func:`mlstm_state_sharding`), else by its cache axes.  Without a mesh,
+    ``t`` as it is."""
+    mesh = sharding.active_mesh()
+    where = (mlstm_state_sharding(cfg, name, tuple(t.shape), mesh)
+             if name != "conv" and sharding.active_rules()[1] is not None else None)
+    if where is None:
+        return sharding.distribute_input(t, *lead_axes, *mlstm_cache_axes()[name])
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, where.mesh, where.placements, src_data_rank=None)
+
+
+def _mlstm_value_split(params, cfg: ModelConfig, split: tuple[int, int], c, u, i_gate, f_gate,
+                       cache=None, return_state: bool = False):
+    """:func:`_mlstm_heads` where the H heads do not take the model axis but
+    divide it (``split`` = (mesh dim, r), :func:`_head_split`): rank j
+    holds head j // r and the (j % r)-th slice of its value dim, the
+    columns of the inner dim [B,S,Di] that the rules' ``"lstm_inner"``
+    split gives it.  The mLSTM is independent across the value dim but for
+    the per-head norm.  Per rank (``local_map``), from c and u, which are
+    whole on every rank: the head's q and k, the rank's columns of its v,
+    the chunk loop (or, with ``cache``, one step on the rank's slice of the
+    state) and the norm by the head's variance, summed over the head's
     ranks (a run, :func:`sharding.split_group`).  In the backward the
     gradients of c, u, wq and wk are partial sums over the run and are
     reduce-scattered over it alone (:func:`sharding.run_grad`).  Where XLA
@@ -607,42 +675,47 @@ def _mlstm_value_split(params, cfg: ModelConfig, dim: int, c, u, i_gate, f_gate,
     products, and no sum of them in the forward or of their gradients in
     the backward.
 
-    Returns (h normed [B,S,Di] f32, the final (C, n, m) placed as the cache
-    is, or None)."""
-    from torch.distributed.tensor import Partial, Shard
+    The state (the cache's at decode, the final one with ``return_state``)
+    stays sliced where the step leaves it (:func:`mlstm_state_sharding`):
+    no state is summed or gathered between steps.  Returns (h normed
+    [B,S,Di] f32, the final (C, n, m) or None)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
 
     d_inner, H, Kd, Vd = mlstm_dims(cfg)
+    dim, r = split
     mesh = c.device_mesh
-    r = mesh.size(dim) // H                         # ranks a head
     group = sharding.split_group(mesh, dim, r)
     inner = sharding.act_placements(c, "batch", "seq", "lstm_inner")  # Shard(2) on dim
-    head, part = divmod(sharding.local_rank_along(mesh, inner, 2)[0], r)
+    head = sharding.local_rank_along(mesh, inner, 2)[0] // r
     rows = sharding.follow(inner, {0: 0})           # the batch split alone
     summed = tuple(Partial() if i == dim else p for i, p in enumerate(rows))
     whole = sharding.follow(inner, {})
     run_rows = tuple(Shard(0) if i == dim else p for i, p in enumerate(whole))
     w_grad = tuple(Partial() if i == dim or p.is_shard() else p for i, p in enumerate(rows))
     wv_grad = tuple(Shard(0) if i == dim else pg for i, pg in enumerate(w_grad))
+    # a rank's slice of a state leaf, with a heads dim of 1, side by side
+    # along that dim over the mesh dim's M ranks
+    slot = sharding.follow(inner, {0: 0, 2: 1})
 
-    def cell(c_, u_, wq, wk, wv, ig, fg):
+    def cell(c_, u_, wq, wk, wv, ig, fg, *state):
         B_, S_ = c_.shape[0], c_.shape[1]
         heads = slice(head * Vd, (head + 1) * Vd)
         q, k = (torch.einsum("bsv,vo->bso", c_[..., heads], w[heads].to(c_.dtype))[:, None]
                 for w in (wq, wk))
         v = torch.einsum("bsv,ov->bso", u_[..., heads], wv.to(u_.dtype))[:, None]
         one = slice(head, head + 1)
-        out = mlstm_chunkwise(q, k, v, ig[:, one], fg[:, one], chunk=cfg.xlstm.chunk_size,
-                              return_state=return_state)
-        h, final = out if return_state else (out, None)
+        if state:
+            h, final = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], ig[:, one, 0],
+                                  fg[:, one, 0], state)
+            h = h[:, :, None]
+        else:
+            out = mlstm_chunkwise(q, k, v, ig[:, one], fg[:, one], chunk=cfg.xlstm.chunk_size,
+                                  return_state=return_state)
+            h, final = out if return_state else (out, None)
         h32 = h.transpose(1, 2).float().reshape(B_, S_, -1)
         var = sharding.group_sum(torch.square(h32).sum(dim=-1, keepdim=True), group) / Vd
         h32 = h32 * torch.rsqrt(var + cfg.norm_eps)
-        if final is None:
-            return h32
-        C1, n1, m1 = final
-        if part:  # n and m from the head's first rank alone
-            n1, m1 = torch.zeros_like(n1), torch.zeros_like(m1)
-        return h32, C1[:, 0], _at(n1, head, H, 1), _at(m1, head, H, 1)
+        return h32 if final is None else (h32, *final)
 
     # the weights by heads: wq, wk [H * Vd (in), Kd], wv [H * Vd (out), Vd (in)],
     # whose rank j's rows are its own head's v columns
@@ -654,19 +727,28 @@ def _mlstm_value_split(params, cfg: ModelConfig, dim: int, c, u, i_gate, f_gate,
     # whole gates, whose gradients come back whole: a partial one would make
     # c's gradient through w_if a partial sum of the whole inner dim
     i_gate, f_gate = (sharding.reduce_partial(t) for t in (i_gate, f_gate))
-    # the state's [B,Kd,Vd/r] slices side by side, as the inner dim's columns
-    outs = ((inner, sharding.follow(inner, {0: 0, 2: 2}), summed, summed) if return_state
-            else inner)
+    # the cache's slices as they are (on the head mesh, which local_map
+    # leaves alone: it redistributes only where the placements differ)
+    state = () if cache is None else (cache["C"], cache["n"], cache["m"])
+    state_p = tuple(tuple(t.placements) for t in state)
+    final = cache is not None or return_state
     res = sharding.local_map(
-        cell, outs, (rows, rows, whole, whole, run_rows, rows, rows), mesh,
-        in_grad_placements=(summed, summed, w_grad, w_grad, wv_grad, summed, summed))(
-        *(sharding.run_grad(t, -1, dim, r) for t in (c, u)), wq, wk, wv, i_gate, f_gate)
-    if not return_state:
+        cell, (inner, slot, slot, slot) if final else inner,
+        (rows, rows, whole, whole, run_rows, rows, rows, *state_p), mesh,
+        in_grad_placements=(summed, summed, w_grad, w_grad, wv_grad, summed, summed, *state_p))(
+        *(sharding.run_grad(t, -1, dim, r) for t in (c, u)), wq, wk, wv, i_gate, f_gate, *state)
+    if not final:
         return res, None
-    h, C, n, m = res
-    B = C.shape[0]
-    C = sharding.unshard_dims(C, -1).reshape(B, Kd, H, Vd).transpose(1, 2)
-    return h, (C, n, m)
+    h, *leaves = res
+    B = c.shape[0]
+    shapes = ((B, H, Kd, Vd), (B, H, Kd), (B, H))
+    out = []
+    for name, t, shape in zip(("C", "n", "m"), leaves, shapes):
+        where = mlstm_state_sharding(cfg, name, shape, mesh)
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        out.append(DTensor.from_local(t.to_local(), where.mesh, where.placements,
+                                      run_check=False, shape=shape, stride=stride))
+    return h, tuple(out)
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device):
@@ -720,21 +802,27 @@ def init_slstm_block(cfg: ModelConfig):
     }
 
 
-def _slstm_steps(wx, R, state, pre: list | None = None):
+def _slstm_steps(wx, R, state, pre: list | None = None, gather=None, hprev: list | None = None):
     """The sLSTM recurrence over time, one step at a time in f32 (the
     reference's ``lax.scan``).  wx: the four gates' input projections
-    (z, i, f, o) [B,S,H,dh] f32; R: their recurrent weights [H,dh,dh] f32;
-    state: (h, c, n, m) [B,H,dh] f32.  Returns the states after every step,
-    (h, c, n, m) each stacked [B,S,H,dh].  With ``pre`` (a list), each step
-    appends its four pre-activations, which the backward reads
-    (:func:`_slstm_steps_backward`)."""
+    (z, i, f, o) [B,S,H,w] f32; R: their recurrent weights [H,dh,w] f32;
+    state: (h, c, n, m) [B,H,w] f32.  Each step's pre-activations read the
+    whole of each head's h_prev [B,H,dh]: w = dh, or, where each head's
+    columns are split over ranks, ``gather`` makes it from the rank's w
+    columns.  Returns the states after every step, (h, c, n, m) each
+    stacked [B,S,H,w].  With ``pre`` (a list), each step appends its four
+    pre-activations, and with ``hprev`` (a list) the whole h_prev it read,
+    which the backward reads (:func:`_slstm_steps_backward`)."""
     h, c, n, m = state
     one = torch.ones((), dtype=h.dtype, device=h.device)
     hs, cs, ns, ms = [], [], [], []
     for t in range(wx[0].shape[1]):
-        pz, pi, pf, po = (w[:, t] + torch.einsum("bhd,hde->bhe", h, r) for w, r in zip(wx, R))
+        hp = h if gather is None else gather(h)
+        pz, pi, pf, po = (w[:, t] + torch.einsum("bhd,hde->bhe", hp, r) for w, r in zip(wx, R))
         if pre is not None:
             pre.append((pz, pi, pf, po))
+        if hprev is not None:
+            hprev.append(hp)
         logf = F.logsigmoid(pf)
         m_new = torch.maximum(logf + m, pi)
         iw = torch.exp(pi - m_new)
@@ -750,15 +838,19 @@ def _slstm_steps(wx, R, state, pre: list | None = None):
     return tuple(torch.stack(v, dim=1) for v in (hs, cs, ns, ms))
 
 
-def _slstm_steps_backward(R, state, pre, stacks, grads):
+def _slstm_steps_backward(R, state, pre, stacks, grads, hprev=None, scatter=None):
     """The gradient of :func:`_slstm_steps` with respect to wx, R and the
     initial state, through time in reverse, from the pre-activations the
-    forward saved (``pre``, (z, i, f, o) each [B,S,H,dh]), its stacked
+    forward saved (``pre``, (z, i, f, o) each [B,S,H,w]), its stacked
     states and their gradients ``grads``: two products for each of the
     forward's, the recurrent weights' gradient one product a gate over every
-    step at the end."""
+    step at the end.  Where each head's columns are split over ranks,
+    ``hprev`` is the whole h_prev the forward read [B,S,H,dh], and each
+    step's gradient into it, a partial sum over the head's ranks,
+    ``scatter`` sums over them and cuts to the rank's w columns."""
     one = torch.ones((), dtype=stacks[0].dtype, device=stacks[0].device)
     prev = [torch.cat([s0[:, None], st[:, :-1]], dim=1) for s0, st in zip(state, stacks)]
+    hprev = prev[0] if hprev is None else hprev
     dh, dc, dn, dm = (torch.zeros_like(s) for s in state)
     dpre = [torch.empty_like(p) for p in pre]
     for t in reversed(range(stacks[0].shape[1])):
@@ -789,31 +881,49 @@ def _slstm_steps_backward(R, state, pre, stacks, grads):
             d[:, t] = g
         # each pre-activation is w_t + h_prev R
         dh = sum(torch.einsum("bhe,hde->bhd", g, r) for g, r in zip((dpz, dpi, dpf, dpo), R))
-    dR = tuple(torch.einsum("bshd,bshe->hde", prev[0], d) for d in dpre)
+        if scatter is not None:
+            dh = scatter(dh)
+    dR = tuple(torch.einsum("bshd,bshe->hde", hprev, d) for d in dpre)
     return (*dpre, *dR, dh, dc, dn, dm)
+
+
+def _run_collective(group: str, R: torch.Tensor, collective):
+    """``collective`` (:func:`sharding.run_all_gather` or
+    :func:`sharding.run_reduce_scatter`) over the ranks of the group named
+    ``group``, dh / w of them for R [H,dh,w]; None for no group ("")."""
+    if not group:
+        return None
+    size = R.shape[1] // R.shape[2]
+    return lambda x: collective(x, group, size)
 
 
 @torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
 def _slstm_scan_op(wz: torch.Tensor, wi: torch.Tensor, wf: torch.Tensor, wo: torch.Tensor,
                    rz: torch.Tensor, ri: torch.Tensor, rf: torch.Tensor, ro: torch.Tensor,
                    h: torch.Tensor, c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
-                   save: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
+                   group: str, save: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                    torch.Tensor, torch.Tensor, torch.Tensor]:
     """The stacked states (h, c, n, m), then, with ``save``, the four
-    pre-activations stacked [4,B,S,H,dh], else an empty tensor."""
+    pre-activations stacked [4,B,S,H,w] and, on a ``group``, the whole
+    h_prev of every step [B,S,H,dh], else empty tensors.  ``group`` names
+    the process group of the ranks that split each head's columns, which
+    gather h every step (a ``str``: an op's schema takes no group); ""
+    for none, w = dh."""
     pre = [] if save else None
-    stacks = _slstm_steps((wz, wi, wf, wo), (rz, ri, rf, ro), (h, c, n, m), pre)
-    if save:
-        saved = torch.stack([torch.stack(p, dim=1) for p in zip(*pre)])
-    else:
-        saved = wz.new_empty(0)
-    return (*stacks, saved)
+    hprev = [] if save and group else None
+    stacks = _slstm_steps((wz, wi, wf, wo), (rz, ri, rf, ro), (h, c, n, m), pre,
+                          _run_collective(group, rz, sharding.run_all_gather), hprev)
+    saved = torch.stack([torch.stack(p, dim=1) for p in zip(*pre)]) if save else wz.new_empty(0)
+    whole = torch.stack(hprev, dim=1) if hprev is not None else wz.new_empty(0)
+    return (*stacks, saved, whole)
 
 
 @_slstm_scan_op.register_fake
-def _(wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m, save):
+def _(wz, wi, wf, wo, rz, ri, rf, ro, h, c, n, m, group, save):
+    B, S, H, _ = wz.shape
     return (*(torch.empty_like(wz) for _ in range(4)),
-            wz.new_empty((4, *wz.shape) if save else (0,)))
+            wz.new_empty((4, *wz.shape) if save else (0,)),
+            wz.new_empty((B, S, H, rz.shape[1]) if save and group else (0,)))
 
 
 @torch.library.custom_op("repro_torch::slstm_scan_backward", mutates_args=())
@@ -821,27 +931,30 @@ def _slstm_scan_backward_op(rz: torch.Tensor, ri: torch.Tensor, rf: torch.Tensor
                             ro: torch.Tensor, h: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
                             m: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
                             ns: torch.Tensor, ms: torch.Tensor, pre: torch.Tensor,
-                            dhs: torch.Tensor, dcs: torch.Tensor, dns: torch.Tensor,
-                            dms: torch.Tensor) -> list[torch.Tensor]:
+                            hprev: torch.Tensor, dhs: torch.Tensor, dcs: torch.Tensor,
+                            dns: torch.Tensor, dms: torch.Tensor, group: str) -> list[torch.Tensor]:
     return list(_slstm_steps_backward((rz, ri, rf, ro), (h, c, n, m), tuple(pre),
-                                      (hs, cs, ns, ms), (dhs, dcs, dns, dms)))
+                                      (hs, cs, ns, ms), (dhs, dcs, dns, dms),
+                                      hprev if group else None,
+                                      _run_collective(group, rz, sharding.run_reduce_scatter)))
 
 
 @_slstm_scan_backward_op.register_fake
-def _(rz, ri, rf, ro, h, c, n, m, hs, cs, ns, ms, pre, dhs, dcs, dns, dms):
+def _(rz, ri, rf, ro, h, c, n, m, hs, cs, ns, ms, pre, hprev, dhs, dcs, dns, dms, group):
     return [torch.empty_like(t) for t in (hs, hs, hs, hs, rz, ri, rf, ro, h, c, n, m)]
 
 
 def _slstm_scan_setup(ctx, inputs, output):
+    ctx.group = inputs[12]
     ctx.save_for_backward(*inputs[4:12], *output)
 
 
-def _slstm_scan_grad(ctx, dhs, dcs, dns, dms, _):
+def _slstm_scan_grad(ctx, dhs, dcs, dns, dms, *_):
     saved = ctx.saved_tensors
-    if saved[-1].numel() == 0:
+    if saved[12].numel() == 0:
         raise RuntimeError("slstm_scan: run with save=False where a gradient is needed")
     grads = [torch.zeros_like(saved[8]) if g is None else g for g in (dhs, dcs, dns, dms)]
-    return (*torch.ops.repro_torch.slstm_scan_backward(*saved, *grads), None)
+    return (*torch.ops.repro_torch.slstm_scan_backward(*saved, *grads, ctx.group), None, None)
 
 
 torch.library.register_autograd("repro_torch::slstm_scan", _slstm_scan_grad,
@@ -849,27 +962,50 @@ torch.library.register_autograd("repro_torch::slstm_scan", _slstm_scan_grad,
 
 
 @register_flop_formula(torch.ops.repro_torch.slstm_scan)
-def _slstm_scan_flops(wz_shape, *args, out_shape=None, **kwargs) -> int:
-    B, S, H, dh = wz_shape
-    return 4 * 2 * B * S * H * dh * dh            # the recurrent products
+def _slstm_scan_flops(wz_shape, wi_shape, wf_shape, wo_shape, rz_shape, *args, out_shape=None,
+                      **kwargs) -> int:
+    B, S, H, w = wz_shape
+    return 4 * 2 * B * S * H * rz_shape[1] * w    # the recurrent products: dh into w a gate
 
 
 @register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)
 def _slstm_scan_backward_flops(rz_shape, *args, out_shape=None, **kwargs) -> int:
     # two products for each recurrent one: into h_prev a step, into R at the end
-    return 2 * _slstm_scan_flops(args[7])  # hs: [B,S,H,dh]
+    return 2 * _slstm_scan_flops(args[7], None, None, None, rz_shape)  # hs: [B,S,H,w]
 
 
-def slstm_scan(wx, R, state):
+@sharding.register_collective_formula(torch.ops.repro_torch.slstm_scan)
+def _slstm_scan_collectives(wz, wi, wf, wo, rz, *args, **kwargs) -> list:
+    """On a group: an all-gather of h [B,H,w] into [B,H,dh] a step."""
+    if not args[7]:  # group
+        return []
+    B, S, H, w = wz.shape
+    size = wz.element_size()
+    return [("all-gather", S, B * H * w * size, B * H * rz.shape[1] * size)]
+
+
+@sharding.register_collective_formula(torch.ops.repro_torch.slstm_scan_backward)
+def _slstm_scan_backward_collectives(rz, *args, **kwargs) -> list:
+    """On a group: a reduce-scatter of the gradient into h_prev a step."""
+    if not args[-1]:  # group
+        return []
+    B, S, H, w = args[7].shape  # hs
+    size = args[7].element_size()
+    return [("reduce-scatter", S, B * H * rz.shape[1] * size, B * H * w * size)]
+
+
+def slstm_scan(wx, R, state, group: str = ""):
     """:func:`_slstm_steps` as one op (``torch.ops.repro_torch.slstm_scan``),
     which, where a gradient is needed, also returns its pre-activations for
     its backward op (:func:`_slstm_steps_backward`): a traced step
     (:mod:`repro_torch.launch.dryrun`) records the whole loop as one node
     with the FLOPs of its products, where the steps one by one would be
-    thousands of nodes a layer.  On DTensors it runs per rank on its batch
-    rows and heads: the recurrence is independent across both, and each
-    rank's gradient of the recurrent weights is a partial sum over the ranks
-    that split the batch."""
+    thousands of nodes a layer.  On plain tensors with ``group`` (the
+    name of a process group, :func:`_slstm_value_split`) each rank holds
+    w of each head's dh columns (R [H,dh,w], the rest [B,...,H,w]).  On
+    DTensors it runs per rank on its batch rows and heads: the recurrence
+    is independent across both, and each rank's gradient of the recurrent
+    weights is a partial sum over the ranks that split the batch."""
     if sharding.is_dtensor(wx[0]):
         xp = sharding.act_placements(wx[0], "batch", "seq", "lstm_heads", None)
         wp = sharding.follow(xp, {0: 0, 2: 2})
@@ -883,21 +1019,100 @@ def slstm_scan(wx, R, state):
             (wp,) * 4 + (rp,) * 4 + (sp,) * 4, wx[0].device_mesh,
             in_grad_placements=(None,) * 4 + (r_grad,) * 4 + (None,) * 4)(*wx, *R, *state)
     save = torch.is_grad_enabled() and any(t.requires_grad for t in (*wx, *R, *state))
-    return torch.ops.repro_torch.slstm_scan(*wx, *R, *state, save)[:4]
+    return torch.ops.repro_torch.slstm_scan(*wx, *R, *state, group, save)[:4]
 
 
-def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple):
+def _slstm_value_split(wx, R, state, split: tuple[int, int], return_state: bool):
+    """:func:`slstm_scan` where the H heads do not take the model axis but
+    divide it (``split`` = (mesh dim, r), :func:`_head_split`), as XLA
+    splits each head's output dim over the r ranks the head gets: rank j
+    holds head j // r and the (j % r)-th block of w = dh / r of its
+    columns.  wx [B,S,d] arrive so (the gate projections are
+    ``("embed", "lstm_inner")``).  Per rank (``local_map``) the op runs on
+    the rank's columns of wx, of its head's R (sliced from R, whole on
+    every rank, as [dh, H * dh]) and of the state, and gathers h among
+    the head's ranks every step (a run, :func:`sharding.split_group`,
+    which the op reaches by its name); its backward reduce-scatters the
+    gradient into h_prev over them every step.  The gradient of R comes
+    back as the rank's [dh, w] block, summed over the batch split and then
+    gathered into R's placement (fewer bytes than a zero-padded partial
+    sum, or than summing the gathered whole); the state's is
+    reduce-scattered over the run (:func:`sharding.run_grad`).
+
+    Returns (h [B,S,d] f32, placed as wx, and, with ``return_state``, the
+    final (h, c, n, m) [B,H,dh] gathered once into the cache's placement,
+    else None)."""
+    from torch.distributed.tensor import Partial
+
+    dim, r = split
+    mesh = wx[0].device_mesh
+    H, dh, _ = R[0].shape
+    w = dh // r
+    group = sharding.split_group(mesh, dim, r).group_name
+    cols = sharding.act_placements(wx[0], "batch", "seq", "lstm_inner")  # Shard(2) on dim
+    head, part = divmod(sharding.local_rank_along(mesh, cols, 2)[0], r)
+    rows = sharding.follow(cols, {0: 0})            # the batch split alone
+    summed = tuple(Partial() if i == dim else p for i, p in enumerate(rows))
+    r_cols = sharding.follow(cols, {2: 1})
+    r_grad = sharding.grad_placements(cols, {2: 1}, {0})
+    slot = sharding.follow(cols, {0: 0, 2: 1})      # a final state [B, d], the rank's columns
+
+    def cell(wz, wi, wf, wo, rz, ri, rf, ro, *st):
+        one, mine = slice(head, head + 1), slice(part * w, (part + 1) * w)
+        st = tuple(t.reshape(t.shape[0], H, dh)[:, one, mine] for t in st)
+        out = slstm_scan(tuple(t[:, :, None] for t in (wz, wi, wf, wo)),
+                         tuple(t[None] for t in (rz, ri, rf, ro)), st, group)
+        h = out[0][:, :, 0]
+        return (h, *(t[:, -1, 0] for t in out)) if return_state else h
+
+    # the state as [B, H * dh], whose gradient each run writes in its head's
+    # block (whole again before the view's backward splits the heads)
+    state = tuple(sharding.run_grad(sharding.grad_as_forward(
+        sharding.replicated(t, mesh).flatten(1)), 1, dim, r) for t in state)
+    # R as [dh, H * dh], a rank's block of columns its own; the block's
+    # gradient summed over the batch split before it is gathered
+    R = tuple(sharding.grad_as_forward(t.permute(1, 0, 2).reshape(dh, H * dh)
+                                       .redistribute(mesh, r_cols)) for t in R)
+    res = sharding.local_map(
+        cell, (cols, *(slot,) * 4) if return_state else cols,
+        (cols,) * 4 + (r_cols,) * 4 + (rows,) * 4, mesh,
+        in_grad_placements=(None,) * 4 + (r_grad,) * 4 + (summed,) * 4)(*wx, *R, *state)
+    if not return_state:
+        return res, None
+    h, *final = res
+    return h, tuple(sharding.unshard_dims(t, -1).reshape(t.shape[0], H, dh) for t in final)
+
+
+def slstm_cell(params, cfg: ModelConfig, x: torch.Tensor, state: tuple,
+               return_state: bool = True):
     """The sLSTM over time in f32 (:func:`slstm_scan`).  x [B,S,D]; state
-    (h, c, n, m) each [B,H,dh] f32.  Returns (h [B,S,D] in x's dtype, final
-    state)."""
+    (h, c, n, m) each [B,H,dh] f32.  Returns (h [B,S,D] in x's dtype, the
+    final state, or None without ``return_state``).
+
+    Where the heads do not take the model axis but divide it, each head's
+    columns are split over its ranks (:func:`_slstm_value_split`), a single
+    step (decode) too.  There the split gathers h among a head's ranks and
+    the final state into the cache's placement, where the heads whole
+    reduce the step's input projections, partial sums over the embed dim
+    that FSDP splits, and gather them; which moves fewer bytes depends on
+    the sizes.  At xlstm-1.3b decode_32k on (16, 16), traced with torch 2.11
+    on a mesh of device type cuda, the split moves fewer: 248.5 MiB a card
+    against 281.0 with the sLSTM's heads whole (2.968e9 against 3.345e9
+    FLOPs).  At d 256, 4 rows a rank, it moves more."""
     H, dh = slstm_dims(cfg)
     f32 = torch.float32
-    wx = tuple(attn._split_heads(L.apply_dense({"w": params[f"w_{g}"], "b": params[f"b_{g}"]},
-                                               x), H, dh).to(f32) for g in GATES)
+    proj = tuple(L.apply_dense({"w": params[f"w_{g}"], "b": params[f"b_{g}"]}, x) for g in GATES)
     R = tuple(params[f"r_{g}"].to(f32) for g in GATES)
-    stacks = slstm_scan(wx, R, tuple(s.to(f32) for s in state))
-    final = tuple(st[:, -1] for st in stacks)
-    return attn._merge_heads(stacks[0]).to(x.dtype), final
+    state = tuple(s.to(f32) for s in state)
+    split = _head_split(_mesh_of(proj[0]), H, dh)
+    if split is not None:
+        h, final = _slstm_value_split(tuple(t.to(f32) for t in proj), R, state, split,
+                                      return_state)
+    else:
+        stacks = slstm_scan(tuple(attn._split_heads(t, H, dh).to(f32) for t in proj), R, state)
+        h = attn._merge_heads(stacks[0])
+        final = tuple(st[:, -1] for st in stacks) if return_state else None
+    return h.to(x.dtype), final
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device):
@@ -917,7 +1132,8 @@ def apply_slstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     """cache (decode): {"state": (h, c, n, m)}.  Returns (x, new cache or None)."""
     y = L.apply_norm(params["norm"], x, cfg.norm_type, cfg.norm_eps)
     state = cache["state"] if cache is not None else init_slstm_state(cfg, x.shape[0], x.device)
-    h, final = slstm_cell(params, cfg, y, state)
+    keep = cache is not None or return_cache
+    h, final = slstm_cell(params, cfg, y, state, return_state=keep)
     # the residual's partial sum reduced first: the add would otherwise turn
     # the scaled h, sharded along "lstm_inner", into a partial sum, which
     # some DTensor versions cannot (torch 2.11, xlstm-1.3b long_500k)
@@ -928,5 +1144,11 @@ def apply_slstm_block(params, cfg: ModelConfig, x: torch.Tensor, cache=None,
     # flattened rows, cannot be unflattened where the batch does not divide
     y = shard(L.apply_norm(params["ffn_norm"], x, cfg.norm_type, cfg.norm_eps),
               "batch", "seq", "embed")
-    x = x + L.apply_mlp(params["ffn"], y, "swiglu")
-    return x, ({"state": final} if (cache is not None or return_cache) else None)
+    # the block's output in its rules' placement, whole on the model ranks.
+    # With h split over them the sum above stays sharded, and the FFN runs
+    # on it split (a whole sum runs one of the FFN's products whole on
+    # every model rank); left so, every later block's products and their
+    # gradients would run on a sharded residual (xlstm-1.3b train_4k:
+    # 337868.5 MiB a card on the wire against 250951.2 with the heads whole)
+    x = shard(x + L.apply_mlp(params["ffn"], y, "swiglu"), "batch", "seq", "embed")
+    return x, ({"state": final} if keep else None)

@@ -166,6 +166,11 @@ def active_rules() -> tuple[ShardingRules | None, ShardingRules | None]:
     return _ACTIVE.params, _ACTIVE.acts
 
 
+def active_mesh():
+    """The mesh of the active :class:`use_rules`, or None."""
+    return _ACTIVE.mesh
+
+
 def mesh_axis_sizes(mesh) -> dict[str, int]:
     """``{axis name: size}`` of a ``DeviceMesh`` (or of any object with
     ``mesh_dim_names`` and ``shape``, such as a test's stand-in)."""
@@ -636,6 +641,45 @@ def _waited(t: torch.Tensor) -> torch.Tensor:
     from torch.distributed import _functional_collectives as funcol
 
     return funcol.wait_tensor(t)
+
+
+def run_all_gather(x: torch.Tensor, group_name: str, size: int) -> torch.Tensor:
+    """Each rank's ``x`` side by side along the last dim, in the order of
+    the ranks of the group named ``group_name`` (``size`` ranks, a run of
+    :func:`split_group`).  For use inside an op on plain tensors: the
+    collective resolves its group by name, and has no gradient."""
+    out = torch.ops._c10d_functional.all_gather_into_tensor(x.contiguous(), size, group_name)
+    out = torch.ops._c10d_functional.wait_tensor(out)
+    return out.reshape(size, *x.shape).movedim(0, -2).reshape(*x.shape[:-1], -1)
+
+
+def run_reduce_scatter(x: torch.Tensor, group_name: str, size: int) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of the group named ``group_name``,
+    each keeping its block of the last dim (one of ``size``, in the group's
+    rank order): :func:`run_all_gather`'s transpose."""
+    blocks = x.reshape(*x.shape[:-1], size, -1).movedim(-2, 0).contiguous()
+    out = torch.ops._c10d_functional.reduce_scatter_tensor(blocks, "sum", size, group_name)
+    return torch.ops._c10d_functional.wait_tensor(out).reshape(*x.shape[:-1], -1)
+
+
+#: op overload packet -> its collective formula (:func:`register_collective_formula`)
+COLLECTIVE_FORMULAS: dict = {}
+
+
+def register_collective_formula(op):
+    """Register ``formula(*args, **kwargs)`` for ``op`` (a custom op's
+    overload packet): a list of ``(collective name, count, operand bytes,
+    result bytes)``, one entry per kind of collective the op runs inside
+    its own implementation on those arguments, where a traced step, which
+    runs the op's fake implementation, cannot see them (a loop op that
+    gathers every step).  ``repro_torch.launch.hlo`` adds them to a trace's
+    collectives, as ``register_flop_formula`` adds an op's FLOPs."""
+
+    def register(formula):
+        COLLECTIVE_FORMULAS[op] = formula
+        return formula
+
+    return register
 
 
 class _GroupSum(torch.autograd.Function):

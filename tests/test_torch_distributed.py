@@ -214,8 +214,9 @@ def _train_worker(rank, tmp, arch, shape=(2, 2), n_experts=None):
 def _splits(cfg, mesh, batch=4, seq=16) -> dict:
     """Where the mesh splits the work the reference's XLA splits and the
     rules cannot say: the mesh dims whose ranks split one routing group's
-    expert work (ROADMAP F11), and the one whose ranks split each xLSTM
-    head's value dim (F9), for a [batch, seq] input."""
+    expert work (ROADMAP F11), and the (mesh dim, ranks a head) that split
+    each xLSTM mLSTM head's value dim and each sLSTM head's columns (F9,
+    F14), for a [batch, seq] input."""
     from repro_torch.models import moe, xlstm
     from repro_torch.parallel import sharding as sh
 
@@ -228,9 +229,10 @@ def _splits(cfg, mesh, batch=4, seq=16) -> dict:
                                    "batch", "experts", "expert_capacity", "mlp")
             out["moe"] = sh.untaken_axes(hp, mesh, "batch", cfg.d_model, batch)
         if cfg.xlstm is not None:
-            d_inner, H, Kd, Vd = xlstm.mlstm_dims(cfg)
+            d_inner, H, _, Vd = xlstm.mlstm_dims(cfg)
             c = sh.distribute_input(torch.zeros(batch, seq, d_inner), "batch", "seq", "lstm_inner")
-            out["xlstm"] = xlstm._value_split_dim(c, H, Kd, Vd)
+            out["xlstm"] = xlstm._head_split(c.device_mesh, H, Vd)
+            out["slstm"] = xlstm._head_split(c.device_mesh, *xlstm.slstm_dims(cfg))
     return out
 
 
@@ -293,6 +295,49 @@ def _decode_worker(rank, tmp):
             "cache": {p: (float((got_cache[p] - t).abs().max()), float(t.abs().max()))
                       for p, t in _tree_leaves(cache)}}
     return out
+
+
+def _slstm_split_worker(rank, tmp):
+    """The sLSTM's recurrence split over each head's ranks (2 heads on a
+    (1, 4) mesh, each head's 8 columns over 2 ranks, ``xlstm._slstm_value_split``)
+    against the unsplit op on whole tensors: h and the final state, and the
+    gradients of a weighted sum of them with respect to wx, R and the
+    initial state.  Max |difference| and the scale of each."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import xlstm
+    from repro_torch.parallel import sharding as sh
+
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    B, S, H, dh = 2, 9, 2, 8
+    rng = np.random.default_rng(4)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    wx = [f(B, S, H * dh) for _ in range(4)]
+    R = [0.5 * f(H, dh, dh) for _ in range(4)]
+    state = [f(B, H, dh), f(B, H, dh), f(B, H, dh).abs() + 0.5, f(B, H, dh)]
+    weights = [f(B, S, H * dh)] + [f(B, H, dh) for _ in range(4)]
+
+    def loss(outs):
+        return sum((o * w).sum() for o, w in zip(outs, weights))
+
+    leaves = [t.clone().requires_grad_() for t in (*wx, *R, *state)]
+    stacks = xlstm.slstm_scan(tuple(t.reshape(B, S, H, dh) for t in leaves[:4]),
+                              tuple(leaves[4:8]), tuple(leaves[8:]))
+    want = [stacks[0].reshape(B, S, H * dh), *(st[:, -1] for st in stacks)]
+    want += torch.autograd.grad(loss(want), leaves)
+    with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
+        split = xlstm._head_split(mesh, H, dh)
+        dleaves = ([sh.distribute_input(t, "batch", "seq", "lstm_inner") for t in wx]
+                   + [sh.replicated(t, mesh) for t in R]
+                   + [sh.distribute_input(t, "batch", "lstm_heads", None) for t in state])
+        dleaves = [t.requires_grad_() for t in dleaves]
+        h, final = xlstm._slstm_value_split(tuple(dleaves[:4]), tuple(dleaves[4:8]),
+                                            tuple(dleaves[8:]), split, True)
+        got = [h, *final]
+        got += torch.autograd.grad(loss(got).full_tensor(), dleaves)
+        got = [t.full_tensor() for t in got]
+    return {"split": split,
+            "diffs": [(float((g - w).abs().max()), float(w.abs().max()))
+                      for g, w in zip(got, want)]}
 
 
 def _prefill_worker(rank, tmp):
@@ -471,12 +516,14 @@ def test_sharded_training_matches_single_process(arch, shape, n_experts, tmp_pat
     output, and the gradients of its input, dispatch and combine, are
     partial sums over those ranks, and ``apply_moe(use_gmm=True)`` on the
     mesh matches whole tensors.  SMOKE xlstm's 2 heads on 4 model ranks
-    split each head's value dim over 2 of them (ROADMAP F9), their sums
-    and gradients over those 2 ranks alone."""
+    split each head's work over 2 of them (ROADMAP F9): the mLSTM's value
+    dim and the sLSTM's columns, which gather h among the 2 ranks every
+    step, their sums and gradients over those 2 ranks alone."""
     results = _trained(arch, tmp_path, shape, n_experts)
     lead = results[0]
     want_splits = {("mixtral-8x7b", (2, 2)): {"moe": [0]}, ("mixtral-8x7b", (1, 4)): {"moe": []},
-                   ("xlstm-1.3b", (2, 2)): {"xlstm": None}, ("xlstm-1.3b", (1, 4)): {"xlstm": 1}}
+                   ("xlstm-1.3b", (2, 2)): {"xlstm": None, "slstm": None},
+                   ("xlstm-1.3b", (1, 4)): {"xlstm": (1, 2), "slstm": (1, 2)}}
     assert lead["splits"] == want_splits.get((arch, shape), {}), lead["splits"]
     if n_experts is not None:
         assert lead["specs"]["h"] == ("data", None, None, "model"), lead["specs"]
@@ -502,16 +549,19 @@ def test_sharded_decode_matches_unsharded(case, tmp_path):
     tokens a step, and its 32-token prompt, are one routing group whose
     expert work the data ranks split (ROADMAP F11); xLSTM's decode runs its
     value projection on a data rank's rows (F12) and, with 2 heads on 4
-    model ranks, its prefill splits each head's value dim over 2 of them
-    (F9), the final state gathered to the cache's placement, and its
-    decode steps run the heads whole.  All cases run in one spawn of the
-    ranks."""
+    model ranks, its prefill and its decode steps split each head's work
+    over 2 of them (F9, F14): the mLSTM's value dim, its C kept sliced by
+    head and value columns in the cache (each leaf's ``full_tensor()`` the
+    reference's shape and values), and the sLSTM's columns, its final
+    state gathered to the cache's placement.  All cases run in one spawn
+    of the ranks."""
     if not _DECODE:
         _DECODE.append(run_ranks(tmp_path, _decode_worker))
     results = _DECODE[0]
     arch, shape = DECODE_CASES[case]
-    want_splits = {"mixtral-8x7b-2x2": {"moe": [0]}, "xlstm-1.3b-2x2": {"xlstm": None},
-                   "xlstm-1.3b-1x4": {"xlstm": 1}}[case]
+    want_splits = {"mixtral-8x7b-2x2": {"moe": [0]},
+                   "xlstm-1.3b-2x2": {"xlstm": None, "slstm": None},
+                   "xlstm-1.3b-1x4": {"xlstm": (1, 2), "slstm": (1, 2)}}[case]
     for r in results:
         c = r[case]
         assert c["splits"] == want_splits, c["splits"]
@@ -520,6 +570,20 @@ def test_sharded_decode_matches_unsharded(case, tmp_path):
             assert diff <= 1e-5 * max(1.0, scale), (case, c["logits"])
         for path, (diff, scale) in c["cache"].items():
             assert diff <= 1e-5 * max(1.0, scale), (case, path, diff, scale)
+
+
+def test_split_slstm_matches_the_unsplit_op(tmp_path):
+    """1e-5 of each's scale: the sLSTM split over each head's ranks, which
+    gathers h among them inside the loop op every step and reduce-scatters
+    its gradient every step back, against the op on whole tensors, on
+    every rank: h, the final state, and the gradients of wx, R and the
+    initial state."""
+    results = run_ranks(tmp_path, _slstm_split_worker)
+    for r in results:
+        assert r["split"] == (1, 2), r["split"]
+        assert len(r["diffs"]) == 5 + 12
+        for i, (diff, scale) in enumerate(r["diffs"]):
+            assert diff <= 1e-5 * max(1.0, scale), (i, diff, scale)
 
 
 def test_grad_shardings_match_param_placements(tmp_path):

@@ -210,7 +210,7 @@ def test_collective_parser():
 
 def test_memory_analysis_liveness():
     """Exact: the peak of the intermediates live at once, arguments and
-    outputs apart."""
+    outputs apart, and what is live there."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode():
@@ -229,6 +229,9 @@ def test_memory_analysis_liveness():
     assert mem["output_size_in_bytes"] == 4
     assert mem["alias_size_in_bytes"] == 0
     assert mem["temp_size_in_bytes"] == 3 * 4096  # a, b and c live at c
+    # the breakdown at that peak: each by the op that made it
+    assert sorted((e["op"], e["count"], e["bytes"]) for e in mem["temp_at_peak"]) == [
+        ("aten.add.Tensor", 1, 4096), ("aten.mul.Tensor", 2, 8192)]
 
 
 # --- (d) per-device FLOPs and collectives ------------------------------------------------
@@ -463,29 +466,86 @@ def test_flash_prefill_traces_through_the_kernel(smoke, fake_world):
     assert rec["cost"]["flops"] > per_layer * cfg.n_layers
 
 
-def test_xlstm_value_split_moves_no_more_bytes_than_heads_whole(monkeypatch):
-    """xLSTM's value split (ROADMAP F9: 4 heads on 16 model ranks, the
-    geometry of xlstm-1.3b on (16, 16)), at d 256 on a fake (2, 16) world:
-    a train step runs fewer FLOPs a rank than with each head whole on every
-    model rank, and moves no more wire bytes.  Its sums run over a head's 4
-    ranks alone; the first split summed zero-padded tensors over all 16 and
-    moved 1.25x the heads-whole bytes here (1.60x at full size, PERF.md)."""
+#: xLSTM at d 256 with 4 heads, one mLSTM and one sLSTM block: on a fake
+#: (2, 16) world the geometry of xlstm-1.3b on (16, 16), each head's columns
+#: over 4 model ranks
+XLSTM_SMALL = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, vocab_size=512)
+
+
+def _xlstm_small():
     from repro_torch.configs.base import XLSTMConfig
+
+    return dict(XLSTM_SMALL, xlstm=XLSTMConfig(slstm_every=2, conv_width=4, chunk_size=16,
+                                               proj_factor=2.0))
+
+
+def test_xlstm_value_split_moves_no_more_bytes_than_heads_whole(monkeypatch):
+    """xLSTM's splits over a head's ranks (ROADMAP F9, F14: 4 heads on 16
+    model ranks, the geometry of xlstm-1.3b on (16, 16)), each against the
+    same step with every head whole on every model rank: a train step at d
+    256 on a fake (2, 16) world (the mLSTM's value split and the sLSTM's
+    recurrence split) and a decode step at decode_32k's sizes a rank (d
+    2048, 128 rows over 16 data ranks, (16, 16), 2 layers; the mLSTM's
+    state sliced in the cache, the sLSTM's single step split).  Each runs
+    fewer FLOPs a rank, moves no more wire bytes and holds no more temp
+    memory.  Their sums run over a head's 4 ranks alone; the first split
+    summed zero-padded tensors over all 16 and moved 1.25x the heads-whole
+    bytes in the train step (1.60x at full size, PERF.md).  A decode step
+    at d 256 and 4 rows a rank is where the sLSTM's split moves more bytes
+    than its heads whole (``xlstm.slstm_cell``)."""
     from repro_torch.models import xlstm
 
-    small = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, vocab_size=512,
-                 xlstm=XLSTMConfig(slstm_every=2, conv_width=4, chunk_size=16,
-                                   proj_factor=2.0))
+    cells = {"train": (_xlstm_small(), ShapeConfig("train_4k", "train", 128, 4), (2, 16)),
+             "decode": (dict(_xlstm_small(), d_model=2048),
+                        ShapeConfig("decode_32k", "decode", 64, 128), (16, 16))}
 
-    def cell():
-        rec = dryrun.run_cell("xlstm-1.3b", "train_4k", "single", cfg_override=small,
-                              shape=ShapeConfig("train_4k", "train", 128, 4),
-                              mesh_shape=(2, 16), save=False, device="cpu")
+    def cell(kind):
+        cfg, shape, mesh_shape = cells[kind]
+        rec = dryrun.run_cell("xlstm-1.3b", shape.name, "single", cfg_override=cfg, shape=shape,
+                              mesh_shape=mesh_shape, save=False, device="cpu")
         assert rec["status"] == "ok", rec.get("traceback")
-        return rec["cost"]["flops"], rec["collectives"]["_total"]["wire_bytes_per_device"]
+        return (rec["cost"]["flops"], rec["collectives"]["_total"]["wire_bytes_per_device"],
+                rec["memory"]["temp_size_in_bytes"])
 
-    split = cell()
-    monkeypatch.setattr(xlstm, "_value_split_dim", lambda *a: None)
-    whole = cell()
-    assert split[0] < whole[0] / 1.5, (split, whole)
-    assert split[1] <= whole[1], (split, whole)
+    split = {kind: cell(kind) for kind in cells}
+    monkeypatch.setattr(xlstm, "_head_split", lambda *a: None)
+    for kind in cells:
+        whole = cell(kind)
+        assert split[kind][0] < whole[0] / 1.5, (kind, split[kind], whole)
+        assert split[kind][1] <= whole[1], (kind, split[kind], whole)
+        assert split[kind][2] <= whole[2], (kind, split[kind], whole)
+
+
+def test_slstm_split_counts_its_collectives_a_step(fake_world):
+    """Exact: on a fake (2, 16) world, a train step's one sLSTM layer (d 256,
+    4 heads, each head's 64 columns over 4 ranks, S = 128) is one
+    ``slstm_scan`` node, which runs S all-gathers of h [B, 1, 16] into
+    [B, 1, 64] f32 among a head's ranks, and one ``slstm_scan_backward``
+    node, which runs S reduce-scatters back, B = 2 rows a data rank: their
+    registered formula, counted by ``analyze_collectives`` beside the
+    collectives DTensor issues."""
+    fake_world(32)
+    cfg = configs.get("xlstm-1.3b").replace(unroll_layers=True, **_xlstm_small())
+    shape = ShapeConfig("train_4k", "train", 128, 4)
+    mesh = make_mesh((2, 16), ("data", "model"), "cpu")
+    with specs_mod.fake_mode():
+        sp = specs_mod.input_specs(cfg, shape, mesh)
+        graph = dryrun.lower(dryrun.make_step_fn(cfg, shape, mesh), sp["state"], sp["batch"])
+    ops_ = {name: [n for n in graph.nodes if n.op == "call_function"
+                   and getattr(n.target, "overloadpacket", None) is getattr(torch.ops.repro_torch,
+                                                                           name)]
+            for name in ("slstm_scan", "slstm_scan_backward")}
+    assert [len(v) for v in ops_.values()] == [1, 1]
+    S, B, w, dh = 128, 2, 16, 64
+    assert hlo._collectives_of(ops_["slstm_scan"][0]) == [("all-gather", S, B * w * 4,
+                                                           B * dh * 4)]
+    assert hlo._collectives_of(ops_["slstm_scan_backward"][0]) == [
+        ("reduce-scatter", S, B * dh * 4, B * w * 4)]
+    plain = {"all-gather": 0, "reduce-scatter": 0}
+    for n in graph.nodes:
+        name = hlo.collective_name(n.target) if n.op == "call_function" else None
+        if name in plain:
+            plain[name] += 1
+    stats = hlo.analyze_collectives(graph)
+    assert stats["all-gather"]["count"] == plain["all-gather"] + S
+    assert stats["reduce-scatter"]["count"] == plain["reduce-scatter"] + S

@@ -615,7 +615,8 @@ def test_loop_ops_count_the_products_of_their_loops():
     A backward runs no product of its forward again: it runs two products
     for each of the forward's, but for the mLSTM's q n0 and n update, whose
     gradients are in part outer products and broadcasts (6 Q K a chunk
-    fewer)."""
+    fewer).  The sLSTM split over 2 ranks a head counts a rank's columns:
+    half the whole head's products."""
     from torch.utils.flop_counter import FlopCounterMode
 
     def count(fn, *a):
@@ -642,14 +643,27 @@ def test_loop_ops_count_the_products_of_their_loops():
     wx, R, state = _slstm_inputs(12)
     pre = []
     plain, stacks = count(xlstm._slstm_steps, wx, R, state, pre)
-    op, outs = count(torch.ops.repro_torch.slstm_scan, *wx, *R, *state, True)
+    op, outs = count(torch.ops.repro_torch.slstm_scan, *wx, *R, *state, "", True)
     assert op == plain
     pre = tuple(torch.stack(p, dim=1) for p in zip(*pre))
     ups = tuple(torch.ones_like(s) for s in stacks)
     plain_back = count(xlstm._slstm_steps_backward, R, state, pre, stacks, ups)[0]
     back = count(torch.ops.repro_torch.slstm_scan_backward, *R, *state, *stacks,
-                 torch.stack(pre), *ups)[0]
+                 torch.stack(pre), outs[5], *ups, "")[0]
     assert back == plain_back == 2 * plain
+
+    # split over a group of 2 ranks a head: a rank's 4 of each head's 8
+    # columns, whose products read the whole h_prev (fake tensors: the
+    # group's collectives run in the op's real implementation alone)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        cols = [t[..., :4] for t in (*wx, *R, *state)]
+        split, souts = count(torch.ops.repro_torch.slstm_scan, *cols, "run", True)
+        split_back = count(torch.ops.repro_torch.slstm_scan_backward, *cols[4:], *souts,
+                           *(torch.ones_like(s) for s in souts[:4]), "run")[0]
+    assert split == plain // 2 and split_back == 2 * split
+    assert souts[4].shape == (4, *cols[0].shape) and souts[5].shape == wx[0].shape
 
 
 def test_train_step_flops_equal_flop_counter_on_real_tensors(monkeypatch):
