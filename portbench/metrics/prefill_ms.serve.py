@@ -1,0 +1,7 @@
+"""prefill_ms.serve: the mean time of Model.prefill a batch, by the host clock
+between synchronises, over the window's unprofiled batches."""
+
+
+def read(run):
+    spans = run.get("prefill_s")
+    return 1e3 * sum(spans) / len(spans) if spans else None
