@@ -31,6 +31,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from .. import tracing as _tracing
 from . import actions as ap
 from . import asl
 from .auth import AuthContext
@@ -658,6 +659,7 @@ class FlowEngine:
             }
         )
         run.log_event(run.start_time, "FlowStarted", input=flow_input)
+        _tracing.begin("flows.run", run.run_id, flow_id=flow_id)
         if defer_start:
             run.deferred = True
         else:
@@ -1258,15 +1260,21 @@ class FlowEngine:
                 "t": now,
             }
         )
+        _tracing.begin(
+            "flows.action", request_id, under=run.run_id,
+            state=state.name, action_url=state.action_url,
+        )
         try:
-            status = provider.run(
-                body,
-                caller=caller,
-                request_id=request_id,
-                monitor_by=sorted(run.monitor_by),
-                manage_by=sorted(run.manage_by),
-            )
+            with _tracing.inside(request_id):
+                status = provider.run(
+                    body,
+                    caller=caller,
+                    request_id=request_id,
+                    monitor_by=sorted(run.monitor_by),
+                    manage_by=sorted(run.manage_by),
+                )
         except AutomationError as e:
+            _tracing.end(request_id, status=ap.FAILED)
             self._state_failed(run, state, e.error_name, e.cause, _error_details(e))
             return
         run.log_event(
@@ -1393,6 +1401,9 @@ class FlowEngine:
             run.action_id = None
             run.action_provider_url = None
             run.action_deadline = None
+        _tracing.end(
+            f"{run.run_id}:{state.name}:{run.attempt}", status=status.status
+        )
         now = self.clock.now()
         self.journal.append(
             {
@@ -1959,6 +1970,7 @@ class FlowEngine:
             }.get(status)
             if key:
                 self.stats[key] += 1
+        _tracing.end(run.run_id, status=status)
         run.done.set()
         # a parent leaving ACTIVE mid-Map abandons its fan-out: cancel the
         # in-flight children — on whichever shard hosts them — so they

@@ -24,6 +24,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Callable
 
+from ... import tracing as _tracing
 from ..actions import FAILED, SUCCEEDED, ActionProvider, _Action
 from ..auth import Identity
 from ..errors import NodeFailure, NotFound
@@ -144,7 +145,8 @@ class ComputeProvider(ActionProvider):
             kwargs = t.get("kwargs", {})
             if f.modeled_duration is not None:
                 modeled += float(f.modeled_duration(kwargs))
-            results.append(f.fn(**kwargs))
+            with _tracing.span("compute.function", function=f.name):
+                results.append(f.fn(**kwargs))
         return results, modeled
 
     def _run_inline(self, action: _Action, endpoint, tasks: list[dict]) -> None:

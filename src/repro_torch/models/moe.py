@@ -25,6 +25,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import ParamSpec
@@ -134,18 +135,23 @@ def apply_moe(
     xg = x.reshape(groups, tg, D)
     xg = shard(xg, "batch", None, "embed")
 
-    logits = xg.float() @ params["router"]["w"].float()  # [G,T,E]
-    capacity = capacity_for(tg, cfg)
-    dispatch, combine, aux = _route(logits, cfg, capacity)
+    with tracing.span("moe.route") as route:
+        logits = xg.float() @ params["router"]["w"].float()  # [G,T,E]
+        capacity = capacity_for(tg, cfg)
+        dispatch, combine, aux = _route(logits, cfg, capacity)
+        if tracing.enabled():
+            # top-k assignments, and those placed within capacity (summed on the device)
+            route.set(assignments=T * cfg.moe.top_k, placed=dispatch.sum())
     dispatch_t = shard(dispatch.to(x.dtype), "batch", None, "experts", None)
 
     experts = [params["experts"][name] for name in ("gate", "up", "down")]
     combine = combine.to(x.dtype)
-    if sharding.is_dtensor(xg):
-        out = _experts_per_shard(cfg, use_gmm, xg, dispatch_t, combine, *experts,
-                                 rows=B if groups == 1 else None)
-    else:
-        out = _experts(cfg, use_gmm, xg, dispatch_t, combine, *experts)
+    with tracing.span("moe.experts"):
+        if sharding.is_dtensor(xg):
+            out = _experts_per_shard(cfg, use_gmm, xg, dispatch_t, combine, *experts,
+                                     rows=B if groups == 1 else None)
+        else:
+            out = _experts(cfg, use_gmm, xg, dispatch_t, combine, *experts)
     return out.reshape(B, S, D), aux
 
 

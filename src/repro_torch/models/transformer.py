@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -116,22 +117,30 @@ def apply_block(
     positions: torch.Tensor,
     cache: dict | None = None,
     cache_position: int | None = None,
+    layer: int | None = None,
 ):
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, aux_loss); ``layer`` (the block's index) labels
+    its spans."""
     h = L.apply_norm(params["attn_norm"], x, cfg.norm_type, cfg.norm_eps)
-    attn_out, new_cache = attn.apply_attention(
-        params["attn"], cfg, h, positions,
-        cache=cache, cache_position=cache_position,
-        window=cfg.sliding_window,
-    )
+    with tracing.span("block.attention", layer=layer) as s:
+        attn_out, new_cache = attn.apply_attention(
+            params["attn"], cfg, s.grad_in(h), positions,
+            cache=cache, cache_position=cache_position,
+            window=cfg.sliding_window,
+        )
+        attn_out = s.grad_out(attn_out)
     if cfg.parallel_residual:
         # command-r style: attention and FFN read the same normed input
-        ffn_out, aux = _ffn(params, cfg, h)
+        with tracing.span("block.ffn", layer=layer) as s:
+            ffn_out, aux = _ffn(params, cfg, s.grad_in(h))
+            ffn_out = s.grad_out(ffn_out)
         x = x + attn_out + ffn_out
     else:
         x = x + attn_out
         h = L.apply_norm(params["mlp_norm"], x, cfg.norm_type, cfg.norm_eps)
-        ffn_out, aux = _ffn(params, cfg, h)
+        with tracing.span("block.ffn", layer=layer) as s:
+            ffn_out, aux = _ffn(params, cfg, s.grad_in(h))
+            ffn_out = s.grad_out(ffn_out)
         x = x + ffn_out
     x = shard(x, "batch", "seq", "embed")
     return x, new_cache, aux
@@ -188,14 +197,14 @@ def forward_lm(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens, pixel_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
-    def body(x, block_params):
-        x, _, a = apply_block(block_params, cfg, x, positions)
+    def body(x, block_params, i):
+        x, _, a = apply_block(block_params, cfg, x, positions, layer=i)
         return x, a
 
     body = _remat(body, cfg)
     aux = torch.zeros((), device=tokens.device)
-    for block_params in unstack(params["blocks"], cfg.n_layers):
-        x, a = body(x, block_params)
+    for i, block_params in enumerate(unstack(params["blocks"], cfg.n_layers)):
+        x, a = body(x, block_params, i)
         aux = aux + a
     return lm_logits(params, cfg, x), aux / max(cfg.n_layers, 1)
 
@@ -210,14 +219,14 @@ def prefill_lm(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
     caches = attn.init_kv_cache(cfg, cfg.n_layers, B, max_len, compute_dtype(cfg),
                                 tokens.device)
 
-    def body(x, block_params, cache):
+    def body(x, block_params, cache, i):
         x, _, _ = apply_block(block_params, cfg, x, positions, cache=cache,
-                              cache_position=0)
+                              cache_position=0, layer=i)
         return x
 
     body = _remat(body, cfg)
     for i in range(cfg.n_layers):
-        x = body(x, layer_params(params["blocks"], i), layer_params(caches, i))
+        x = body(x, layer_params(params["blocks"], i), layer_params(caches, i), i)
     return lm_logits(params, cfg, x[:, -1:, :]), caches
 
 
@@ -231,7 +240,7 @@ def decode_lm(params, cfg: ModelConfig, tokens_new: torch.Tensor, caches,
     for i in range(cfg.n_layers):
         x, _, _ = apply_block(
             layer_params(params["blocks"], i), cfg, x, positions,
-            cache=layer_params(caches, i), cache_position=position,
+            cache=layer_params(caches, i), cache_position=position, layer=i,
         )
     return lm_logits(params, cfg, x), caches
 

@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.errors import NodeFailure
 from repro_torch.models.model import Model, param_axes, param_shapes
@@ -121,17 +121,23 @@ class TrainingFabric:
     # ------------------------------------------------------------ functions
     def train_steps(self, n_steps: int = 10, **_) -> dict:
         """Run n training steps; raises NodeFailure at the injected step."""
-        t0 = time.time()
+        t0 = time.perf_counter()
         metrics = {}
-        for _ in range(n_steps):
-            step_now = int(self.state.step)
-            if self.inject_failure_at is not None and step_now >= self.inject_failure_at:
-                self.inject_failure_at = None
-                raise NodeFailure(f"simulated device loss at step {step_now}")
-            batch = self._to_device(next(self._data_iter))
-            self.state, metrics = self._train_step(self.state, batch)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        record = {"step": int(self.state.step), "seconds": time.time() - t0, **metrics}
+        with tracing.span("fabric.train_steps", n_steps=n_steps):
+            for _ in range(n_steps):
+                with tracing.span("fabric.step") as step_span:
+                    with tracing.span("fabric.step_sync"):
+                        step_now = int(self.state.step)
+                    if self.inject_failure_at is not None and step_now >= self.inject_failure_at:
+                        self.inject_failure_at = None
+                        raise NodeFailure(f"simulated device loss at step {step_now}")
+                    with tracing.span("fabric.batch"):
+                        batch = self._to_device(next(self._data_iter))
+                    step_span.set(step=step_now, tokens=batch["tokens"].numel())
+                    self.state, metrics = self._train_step(self.state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+        record = {"step": int(self.state.step), "seconds": time.perf_counter() - t0,
+                  **metrics}
         self.history.append(record)
         return record
 

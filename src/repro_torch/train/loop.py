@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
@@ -93,13 +94,14 @@ def make_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
     on them (a reduce-scatter where the backward left a partial sum)."""
 
     def grad_fn(params, mb):
-        mb = {k: sharding.distribute_input(v, "batch", *(None,) * (v.dim() - 1))
-              for k, v in mb.items()}
-        if tcfg.grad_compression == "bf16":
-            loss, grads = grads_in_bf16(model.loss, params, mb)
-        else:
-            loss, grads = L.value_and_grad(model.loss, params, mb)
-        return loss, _place_grads(grads, params, grad_shardings)
+        with tracing.span("train.grad"):
+            mb = {k: sharding.distribute_input(v, "batch", *(None,) * (v.dim() - 1))
+                  for k, v in mb.items()}
+            if tcfg.grad_compression == "bf16":
+                loss, grads = grads_in_bf16(model.loss, params, mb)
+            else:
+                loss, grads = L.value_and_grad(model.loss, params, mb)
+            return loss, _place_grads(grads, params, grad_shardings)
 
     def train_step(state: TrainState, batch: dict):
         if tcfg.microbatches > 1:
@@ -119,7 +121,8 @@ def make_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
         else:
             loss, grads = grad_fn(state.params, batch)
 
-        params, opt_state, metrics = opt.adamw_update(state.params, grads, state.opt, tcfg)
+        with tracing.span("train.adamw"):
+            params, opt_state, metrics = opt.adamw_update(state.params, grads, state.opt, tcfg)
         return TrainState(params, opt_state), {"loss": sharding.full_tensor(loss).float(),
                                                **metrics}
 

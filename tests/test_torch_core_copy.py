@@ -5,7 +5,11 @@ source (``repro.core``).
 keeps it as a copy (it imports nothing of ``repro``).  The copy must not
 drift: every module equals its source byte for byte, except three docstring
 lines of ``process_backend.py`` that cite the reference's history by pull
-request number, which the copy rewords (the port's files cite none).  A flow also runs through
+request number, which the copy rewords (the port's files cite none), and the
+port's spans (``repro_torch.tracing``, imported as ``_tracing``) in
+``engine.py`` and ``providers/compute.py``: with those statements taken out,
+and each ``with _tracing...:`` block moved back one level, the module equals
+its source line for line.  A flow also runs through
 the copy end to end, inline and in worker processes whose registry spec names
 the port (``repro_torch.core.process_backend:default_registry``).
 """
@@ -28,10 +32,39 @@ SRC, COPY = ROOT / "src" / "repro" / "core", ROOT / "src" / "repro_torch" / "cor
 # a line of the source that cites a pull request by number; the copy rewords it
 CITES_A_PULL_REQUEST = re.compile(r"\bPR \d")
 REWORDED = {"process_backend.py": 3}  # such lines, by module
+# the copy's tracing statements, by module (the import among them)
+TRACED = {"engine.py": 7, "providers/compute.py": 2}
+TRACING = re.compile(r"^\s*(with )?_tracing\.|^from \.+ import tracing as _tracing$")
 
 
 def _modules(root: Path) -> list[str]:
     return sorted(p.relative_to(root).as_posix() for p in root.rglob("*.py"))
+
+
+def _without_tracing(lines: list[str]) -> tuple[list[str], int]:
+    """(the lines with every tracing statement taken out, each ``with
+    _tracing...:`` block moved back one level; the number of statements)."""
+    out, statements, blocks, i = [], 0, [], 0
+    while i < len(lines):
+        line = lines[i]
+        indent = len(line) - len(line.lstrip())
+        while blocks and line.strip() and indent <= blocks[-1]:
+            blocks.pop()
+        if TRACING.match(line):
+            statements += 1
+            depth = line.count("(") - line.count(")")
+            while depth > 0:
+                i += 1
+                depth += lines[i].count("(") - lines[i].count(")")
+            if line.lstrip().startswith("with "):
+                blocks.append(indent)
+            i += 1
+            continue
+        shift = 4 * len(blocks)
+        assert not line[:shift].strip(), line
+        out.append(line[shift:])
+        i += 1
+    return out, statements
 
 
 def test_copy_has_the_same_modules():
@@ -42,6 +75,11 @@ def test_copy_has_the_same_modules():
 @pytest.mark.parametrize("name", _modules(SRC))
 def test_module_equals_its_source(name):
     source, copy = (SRC / name).read_bytes(), (COPY / name).read_bytes()
+    if name in TRACED:
+        lines, statements = _without_tracing(copy.decode().splitlines())
+        assert statements == TRACED[name]
+        assert lines == source.decode().splitlines()
+        return
     if name not in REWORDED:
         assert copy == source
         return
@@ -51,6 +89,18 @@ def test_module_equals_its_source(name):
     assert len(differ) == REWORDED[name]
     for a, b in differ:
         assert CITES_A_PULL_REQUEST.search(a) and not CITES_A_PULL_REQUEST.search(b), (a, b)
+
+
+def test_taking_tracing_out_restores_the_block_and_nothing_else():
+    copy = ["def f(x):", "    _tracing.begin(", "        'a', x,", "    )",
+            "    with _tracing.span('b'):", "        y = g(x)", "", "        z = y",
+            "    return z  # _tracing. in a comment stays"]
+    lines, statements = _without_tracing(copy)
+    assert statements == 2
+    assert lines == ["def f(x):", "    y = g(x)", "", "    z = y",
+                     "    return z  # _tracing. in a comment stays"]
+    # a line the copy changed besides is still a difference
+    assert _without_tracing(["    with _tracing.span('b'):", "        y = h(x)"])[0] != ["    y = g(x)"]
 
 
 def test_flow_runs_through_the_copy(tmp_path):
