@@ -15,7 +15,10 @@ Phases, each of which raises on failure (a non-zero exit):
               card, at its path's shape and at edge cases, with the route
               each case takes and times of the kernel, the plain version, the
               PyTorch library call that computes the same function (where
-              one exists) and the card's bound;
+              one exists) and the card's bound; training's causal attention
+              pair (forward with log-sum-exp, backward) at internlm2-1.8b's
+              training shape and edge cases, dq, dk and dv within one bf16
+              step of the plain backward;
 4. serve    - full-width, full-depth internlm2-1.8b (random weights from a
               seed, bf16 compute, attention_impl="flash") serves 16 requests
               through BatchAccumulator and ServeEngine; flash_attention must
@@ -64,8 +67,10 @@ Phases, each of which raises on failure (a non-zero exit):
               params and AdamW state, bf16 compute, "xla", remat "full", the
               config's own; weights drawn from seed 0) takes 5 steps of
               make_train_step on 8 x 512 SyntheticTokens batches: finite
-              losses that fall, no kernel launched (training runs the plain
-              routes, as in the reference), step ms, tokens/s, model FLOP/s,
+              losses that fall, none of the three kernels launched (their
+              Pallas originals have no backward) and the training attention
+              pair 48 forward and 24 backward launches a step, step ms,
+              tokens/s, model FLOP/s,
               peak memory, one step without remat and one saving the
               projections, a one-step profile; at 2 layers in f32 one step
               with microbatches=1 against microbatches=2; the training flow
@@ -361,6 +366,127 @@ def check_attention_kernel() -> dict:
     return records
 
 
+# Training's causal self-attention (the xla route's kernels): name, B, S = T,
+# H, K, D, bf16.  Timed at internlm2-1.8b's training shape; the edge cases take
+# ragged lengths, D 64, MHA and MQA.
+TRAIN_ATTN_CASE = ("train", 8, 2048, 16, 8, 128)
+TRAIN_ATTN_EDGE_CASES = [
+    ("ragged", 2, 100, 4, 2, 128),
+    ("s37_d64", 2, 37, 4, 2, 64),
+    ("s2", 2, 2, 4, 2, 128),
+    ("d64", 2, 256, 8, 2, 64),
+    ("mha", 2, 192, 4, 4, 128),
+    ("mqa", 1, 320, 8, 1, 128),
+]
+
+
+def bf16_steps(err: float, expected) -> float:
+    """``err`` in bf16 steps at ``expected``'s largest magnitude (a step is
+    2^(e - 7) for magnitudes in [2^e, 2^(e+1)))."""
+    import math
+
+    top = expected.float().abs().max().item()
+    return err / 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else float(err > 0)
+
+
+def train_attention_bound_ms(case) -> dict:
+    """The least time of the forward (its two products over the causal pairs)
+    and of the backward (five: S again, dP, dV, dQ, dK) at the bf16 peak, or
+    their bytes (inputs read once, outputs written once) at the HBM rate,
+    whichever is larger."""
+    from repro_torch.kernels.ops import attended_pairs
+
+    _, B, S, H, K, D = case
+    pair_flops = B * H * D * attended_pairs(S, S, True, None)
+    q_bytes, kv_bytes = 2 * B * S * H * D, 2 * B * S * K * D
+    out = {}
+    for name, flops, nbytes in (("fwd", 4 * pair_flops, 2 * q_bytes + 2 * kv_bytes),
+                                ("bwd", 10 * pair_flops, 6 * q_bytes + 4 * kv_bytes)):
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+        out[f"{name}_bound_ms"] = 1e3 * max(t_bytes, t_flops)
+        out[f"{name}_bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
+    return out
+
+
+def check_train_attention_kernel() -> dict:
+    """The training pair (flash_attention_fwd_lse, flash_attention_bwd)
+    against its plain versions at the training shape and the edge cases: the
+    output within TOL, the log-sum-exp within 1e-3, and dQ, dK and dV within
+    one bf16 step at their largest magnitude of the plain backward fed the
+    kernel's own output and log-sum-exp.  At the training shape it times the
+    forward and the backward, the plain versions and SDPA (forward, and its
+    backward as forward-and-backward less forward; the port never calls it).
+    Returns the timed case's record."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    record = {}
+    for case in [TRAIN_ATTN_CASE] + TRAIN_ATTN_EDGE_CASES:
+        name, B, S, H, K, D = case
+        q, k, v = (torch.randn(B, S, n, D, generator=gen, device="cuda").to(torch.bfloat16)
+                   for n in (H, K, K))
+        dout = torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        out, lse = fa.flash_attention_fwd_lse(q, k, v)
+        grads = fa.flash_attention_bwd(dout, q, k, v, out, lse)
+        torch.cuda.synchronize()
+        want_out, want_lse = ref.causal_attention_fwd_ref(q, k, v)
+        torch.testing.assert_close(out.float(), want_out.float(), rtol=TOL["bfloat16"],
+                                   atol=TOL["bfloat16"],
+                                   msg=lambda m, n=name: f"flash_attention_fwd_lse {n}: {m}")
+        torch.testing.assert_close(lse, want_lse, rtol=1e-3, atol=1e-3,
+                                   msg=lambda m, n=name: f"flash_attention_fwd_lse {n} lse: {m}")
+        want = ref.causal_attention_bwd_ref(dout, q, k, v, out, lse)
+        rec = {"out_max_abs_err": (out.float() - want_out.float()).abs().max().item(),
+               "lse_max_abs_err": (lse - want_lse).abs().max().item()}
+        for gname, got, exp in zip(("dq", "dk", "dv"), grads, want):
+            check(got.dtype == exp.dtype and got.shape == exp.shape, f"{name}: bad {gname}")
+            err = (got.float() - exp.float()).abs().max().item()
+            rec[f"{gname}_bf16_steps"] = steps = bf16_steps(err, exp)
+            check(steps <= 1.0, f"flash_attention_bwd {name}: {gname} is {steps:.2f} bf16 "
+                                f"steps from the plain backward (max|err| {err:.3e})")
+        print(f"  train attention {name:8s} B{B} S{S} H{H} K{K} D{D}: out max|err| "
+              f"{rec['out_max_abs_err']:.3e}, lse {rec['lse_max_abs_err']:.3e}; dq, dk, dv "
+              f"{rec['dq_bf16_steps']:.2f}, {rec['dk_bf16_steps']:.2f}, "
+              f"{rec['dv_bf16_steps']:.2f} bf16 steps from the plain backward")
+        if case == TRAIN_ATTN_CASE:
+            rec["fwd_ms"] = time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v), iters=10)
+            rec["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd(dout, q, k, v, out, lse),
+                                    iters=10)
+            rec["plain_fwd_ms"] = time_ms(lambda: ref.causal_attention_fwd_ref(q, k, v),
+                                          iters=2, warmup=1)
+            rec["plain_bwd_ms"] = time_ms(
+                lambda: ref.causal_attention_bwd_ref(dout, q, k, v, out, lse), iters=2, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+            dot = dout.transpose(1, 2).contiguous()
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+
+            def sdpa_both():
+                torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+            with torch.no_grad():
+                rec["library_fwd_ms"] = time_ms(sdpa, iters=10)
+            rec["library_bwd_ms"] = time_ms(sdpa_both, iters=10) - rec["library_fwd_ms"]
+            rec.update(train_attention_bound_ms(case))
+            print(f"    forward {rec['fwd_ms']:.4f} ms (bound {rec['fwd_bound_ms']:.4f}, "
+                  f"{rec['fwd_bound_by']}: {100 * rec['fwd_bound_ms'] / rec['fwd_ms']:.1f} %), "
+                  f"backward {rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}, "
+                  f"{rec['bwd_bound_by']}: {100 * rec['bwd_bound_ms'] / rec['bwd_ms']:.1f} %); "
+                  f"plain {rec['plain_fwd_ms']:.3f} / {rec['plain_bwd_ms']:.3f} ms; SDPA "
+                  f"{rec['library_fwd_ms']:.4f} / {rec['library_bwd_ms']:.4f} ms")
+            record = rec
+            del qt, kt, vt, dot
+        del q, k, v, dout, out, lse, grads, want, want_out, want_lse
+        torch.cuda.empty_cache()
+    return record
+
+
 def ptxas_usage(report: str) -> dict[str, dict]:
     """Registers, static shared memory and spill stores and loads (bytes) by
     (mangled) entry function, from nvcc's -Xptxas -v report."""
@@ -380,7 +506,8 @@ def ptxas_usage(report: str) -> dict[str, dict]:
 
 # the bf16 kernels of the three (the tensor-core ones keep their tiles in
 # registers): a spill is a fault
-NO_SPILL_ENTRIES = ("flash_attention_bf16_kernel", "gmm_tma_kernel", "gmm_bf16_kernel",
+NO_SPILL_ENTRIES = ("flash_attention_bf16_kernel", "flash_attention_bwd_dkdv_kernel",
+                    "flash_attention_bwd_dq_kernel", "gmm_tma_kernel", "gmm_bf16_kernel",
                     "mamba_scan_tc_kernel", "mamba_scan_kernel<bfloat16>")
 
 
@@ -762,6 +889,8 @@ def reset_launch_counts() -> None:
 
     fa.flash_attention.launches = 0
     fa.flash_attention.noncausal_launches = 0
+    fa.flash_attention_fwd_lse.launches = 0
+    fa.flash_attention_bwd.launches = 0
     ms.mamba_scan.launches = 0
     mg.gmm.launches = 0
 
@@ -979,8 +1108,9 @@ def evaluate(model, params, per_batch: dict, shallow: int | None, shallow_tol: f
     by one; with ``frames``, B x frames x d_model stub frame embeddings drawn
     from seed 0 beside them); each kernel must launch ``per_batch[name]`` times
     a batch.  The forward logits of the first batch through the kernels
-    ("flash") are held against the plain routes ("xla"): f32 at full depth,
-    bf16 at the first ``shallow`` layers (``shallow`` None: a model with no
+    ("flash") are held against the plain routes ("xla", attention through
+    attend_xla: the xla route's training kernels patched off): f32 at full
+    depth, bf16 at the first ``shallow`` layers (``shallow`` None: a model with no
     kernel on its path, whose two routes are one, is not compared).  Returns
     (the launches, the first batch).
 
@@ -990,9 +1120,12 @@ def evaluate(model, params, per_batch: dict, shallow: int | None, shallow_tol: f
     the flash run is therefore held against xla on xla's routing (replayed
     through ``routing``), which isolates what the kernels change; the
     distances on each run's own routing and the tokens rerouted are printed."""
+    from unittest import mock
+
     import numpy as np
     import torch
 
+    from repro_torch.models import attention
     from repro_torch.models.model import Model
     from repro_torch.train.loop import make_eval_step
 
@@ -1036,7 +1169,11 @@ def evaluate(model, params, per_batch: dict, shallow: int | None, shallow_tol: f
             if moe:
                 runs.append(("flash_pinned", "flash", None, tapes["xla"]))
             for name, impl, record, replay in runs:
-                with routing(record, replay):
+                # the plain side is attend_xla itself: unpatched, the xla route
+                # sends this causal bf16 forward to the training kernels
+                plain = (mock.patch.object(attention, "fused_causal", lambda *a, **k: False)
+                         if impl == "xla" else contextlib.nullcontext())
+                with routing(record, replay), plain:
                     out, _ = Model(run_cfg.replace(attention_impl=impl)).forward(
                         params, batches[0])
                 check(bool(torch.isfinite(out).all()), f"{name} {dtype} logits not finite")
@@ -1461,9 +1598,11 @@ def train() -> dict:
     params; f32 params and AdamW state, bf16 compute, attention_impl="xla",
     remat "full", the config's own), weights drawn from seed 0 (std
     1/sqrt(d_in)), TRAIN_STEPS steps on TRAIN_B x TRAIN_S batches.  Checks a
-    finite loss that falls from the first step to the last and that no kernel
-    of the three launches (training runs the plain routes, as in the
-    reference).  Prints each step, the median step time, tokens/s, model
+    finite loss that falls from the first step to the last, that no kernel
+    of the three launches (the reference's Pallas kernels have no backward)
+    and that the xla route's attention runs the training pair: 2 forward
+    launches a layer (forward and remat's recompute) and 1 backward a step.
+    Prints each step, the median step time, tokens/s, model
     FLOP/s (8 N tokens a step with remat), peak memory, the optimizer's share,
     one step each under remat "none" and "dots", and a one-step profile.
     Returns the numbers."""
@@ -1472,6 +1611,7 @@ def train() -> dict:
 
     from repro_torch import configs
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import Model
     from repro_torch.testing import redraw_params_
     from repro_torch.train import loop
@@ -1514,9 +1654,13 @@ def train() -> dict:
     finally:
         opt.adamw_update = real_update
     launches = launch_counts()
+    train_attention = {"fwd": fa.flash_attention_fwd_lse.launches,
+                       "bwd": fa.flash_attention_bwd.launches}
     peak = torch.cuda.max_memory_allocated()
     check(launches == {"flash_attention": 0, "mamba_scan": 0, "gmm": 0},
           f"training launched {launches}; its path runs no kernel of the three")
+    want = {"fwd": 2 * cfg.n_layers * TRAIN_STEPS, "bwd": cfg.n_layers * TRAIN_STEPS}
+    check(train_attention == want, f"training's attention launched {train_attention}, want {want}")
     check(all(np.isfinite(losses + norms)), f"training not finite: {losses} {norms}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     tokens = TRAIN_B * TRAIN_S
@@ -1527,7 +1671,8 @@ def train() -> dict:
            "step_ms": [1e3 * t for t in times], "median_step_ms": 1e3 * step_s,
            "tokens_per_s": tokens / step_s, "model_flops_per_s": flops / step_s,
            "model_flops_share": flops / step_s / PEAK_FLOPS["bfloat16"], "peak_memory_gb": peak / 1e9,
-           "adamw_ms": 1e3 * float(np.median(update_s)), "launches": launches}
+           "adamw_ms": 1e3 * float(np.median(update_s)), "launches": launches,
+           "train_attention_launches": train_attention}
     print(f"  median step {out['median_step_ms']:.3f} ms: {out['tokens_per_s']:.1f} tokens/s, "
           f"model FLOP/s (8 N tokens) {out['model_flops_per_s'] / 1e12:.1f} T = "
           f"{100 * out['model_flops_share']:.1f} % of the bf16 peak; AdamW (host clock, median) "
@@ -1550,10 +1695,17 @@ def train() -> dict:
     out["profiled_step_busy_ms"] = _profile("train step (1 step, remat full)",
                                             lambda: step_fn(state, batches[0]), top=10,
                                             groups=KERNEL_GROUPS)
-    # the FLOPs of one real step, for phase 12 to hold its traced count against
+    # the FLOPs of one real step, for phase 12 to hold its traced count
+    # against.  The trace runs on a (1, 1) mesh, whose DTensors take
+    # attend_xla, so this step takes it too: the same ops by the same formulas.
+    from unittest import mock
+
     from torch.utils.flop_counter import FlopCounterMode
 
-    with FlopCounterMode(display=False) as counter:
+    from repro_torch.models import attention
+
+    with FlopCounterMode(display=False) as counter, \
+            mock.patch.object(attention, "fused_causal", lambda *a, **k: False):
         step_fn(state, batches[0])
     out["counted_step_flops"] = counter.get_total_flops()
     del state, params, batches
@@ -2419,6 +2571,7 @@ def main() -> int:
     print("== kernels vs plain versions")
     attn_records = check_attention_kernel()
     attn = attn_records[SLICE_CASE[0]]
+    train_attn = check_train_attention_kernel()
     ssd = check_mamba_kernel()
     gmm_records = check_gmm_kernel()
     gmm = gmm_records[GMM_SLICE[0]]
@@ -2518,6 +2671,10 @@ def main() -> int:
         "library_ms": attn["library_ms"],
         # the same fields at mixtral's shape and at the slice shape in f32
         **{name: rec for name, rec in attn_records.items() if name != SLICE_CASE[0]},
+    }, {
+        "name": "flash_attention_train", "route": "cuda", "kernel_route": "tma_wgmma",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": None, "launches": training["train_attention_launches"], **train_attn,
     }, {
         "name": "mamba_scan", "route": "cuda", "kernel_route": ssd["kernel_route"],
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",

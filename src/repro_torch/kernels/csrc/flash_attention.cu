@@ -59,6 +59,20 @@
 // 64-row q tile), K/V tiles staged in shared memory as f32, products as fp32
 // FMA loops on a 16 x 16 thread grid (4 query rows and 4 key columns a
 // thread), P through shared memory.
+//
+// Training (flash_attention_fwd_lse, flash_attention_bwd): causal
+// self-attention and its gradient for the `xla` route's training step
+// (models/attention.py attend).  They replace no Pallas kernel: the
+// reference's `xla` route is einsum attention that XLA fuses, and its
+// gradient is jax.grad through it; the Pallas kernel has no backward.  The
+// forward is the bf16 kernel above with LSE on (serving's instantiation has
+// it off, its code unchanged).  The backward is described at "bf16 backward"
+// below.  Bound at internlm2-1.8b's training shape (B 8, S = T = 2048, H 16,
+// K 8, D 128): 2.69e8 causal pairs; the forward's two products 1.37e11 FLOP,
+// 0.139 ms at 989 TFLOP/s (its 201 MB 0.060 ms at 3.35 TB/s); the backward's
+// five (S again, dP, dV, dQ, dK) 3.44e11 FLOP, 0.347 ms (403 MB, 0.120 ms).
+// Both are bound by operations.  The backward issues seven, dQ and dK twice
+// (dS as hi + lo, below): 4.81e11 FLOP on the tensor cores.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,6 +91,7 @@ constexpr int TC_THREADS = 128;  // one warpgroup: 4 warps, 16 q rows each
 constexpr int TC_BM = 64;        // q rows a block: one m64 wgmma
 constexpr int TC_BN = 64;        // kv rows a tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // A staged tile: 64 rows of D bf16, cut into slabs of RB-byte rows, RB the
 // largest of 128, 64 and 32 that divides a row's 2 D bytes (D 16: 32; D 32,
@@ -119,18 +134,36 @@ __device__ __forceinline__ void tma_tile(char* dst, const CUtensorMap* map, int 
     ptx::tma_load_4d(dst + slab * TT::SLAB, map, slab * TT::RB / 2, head, row, b, bar);
 }
 
+// The descriptor of columns 16 kk .. 16 kk + 15 of a staged tile's 64 rows,
+// read k-major (each row one row of the product's A, or one column of its B).
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(const char* tile, int kk) {
+  using TT = TcTile<D>;
+  return ptx::wgmma_desc(tile + (32 * kk / TT::RB) * TT::SLAB + 32 * kk % TT::RB, 16, 8 * TT::RB,
+                         TT::SWIZZLE);
+}
+
 // S (64 x 64) = Q K^T over D, K read k-major from the staged tile.
 template <int D>
 __device__ __forceinline__ void qk_wgmma(float (&s)[32], const uint32_t (&qf)[D / 16][4],
                                          const char* k_tile) {
-  using TT = TcTile<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    ptx::wgmma_m64n64k16<0>(
-        s, qf[kk],
-        ptx::wgmma_desc(k_tile + (32 * kk / TT::RB) * TT::SLAB + 32 * kk % TT::RB, 16,
-                        8 * TT::RB, TT::SWIZZLE),
-        kk > 0);
+    ptx::wgmma_m64n64k16<0>(s, qf[kk], kmajor_desc<D>(k_tile, kk), kk > 0);
+}
+
+// The warpgroup's 64 x 64 f32 fragment, rounded to bf16, as the A fragments
+// of a product over its 64 columns, 16 a step (ptx.cuh: two D column tiles
+// side by side are one A fragment).
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[TC_BN / 16][4],
+                                           const float (&s)[TC_BN / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < TC_BN / 16; ++kk) {
+    a[kk][0] = ptx::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    a[kk][1] = ptx::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    a[kk][2] = ptx::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[kk][3] = ptx::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
 }
 
 // O (64 x D) += P (64 x 16) V (16 x D), V read n-major (transposed) from the
@@ -167,12 +200,14 @@ __device__ __forceinline__ void pv_wgmma(float (&acc)[D / 2], const uint32_t (&p
   }
 }
 
-// 2 blocks (8 warps) an SM: at 3, D 128 would be held to 168 registers and spill
-template <int D>
+// 2 blocks (8 warps) an SM: at 3, D 128 would be held to 168 registers and spill.
+// LSE: also store each row's log-sum-exp of its scaled scores (natural log,
+// f32, [B, H, S]) for the backward; serving's instantiation has it off.
+template <int D, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS, 2)
-flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, int S, int T_len, int H, int K,
-                            int causal, int window, float softcap, float sm_scale,
-                            const __grid_constant__ CUtensorMap q_map,
+flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+                            int T_len, int H, int K, int causal, int window, float softcap,
+                            float sm_scale, const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map) {
   using TT = TcTile<D>;
@@ -323,13 +358,7 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, int S, int T_len, int
 
     // O += P V, P as bf16 A fragments straight from the score fragments
     uint32_t pf[TC_BN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < TC_BN / 16; ++kk) {
-      pf[kk][0] = ptx::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[kk][1] = ptx::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[kk][2] = ptx::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[kk][3] = ptx::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
+    to_a_frags(pf, s);
     ptx::fence_regs(acc_flat);
     ptx::wgmma_fence();
 #pragma unroll
@@ -351,6 +380,13 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, int S, int T_len, int
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int r = warp * 16 + lane / 4 + 8 * i;
+    if constexpr (LSE) {
+      // p = 2^(s scale_log2 - m_scaled), summed to `sum`: the log-sum-exp of
+      // the scaled scores is (m_scaled + log2(sum)) ln 2
+      if (lane % 4 == 0 && q0 + r < S)
+        lse[((long)b * H + h) * S + q0 + r] =
+            ((m[i] == -INFINITY ? 0.f : m[i] * scale_log2) + log2f(fmaxf(sum, 1e-30f))) * LN2;
+    }
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
       *reinterpret_cast<uint32_t*>(o_tile + r * PITCH + dt * 8 + 2 * (lane % 4)) =
@@ -410,10 +446,10 @@ cudaError_t tile_map(CUtensorMap* map, EncodeTiled encode, const void* x, int B,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, bool LSE = false>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
                         int T_len, int H, int K, int causal, int window, float softcap,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, float* lse = nullptr) {
   // TMA and the 16-byte output stores need 16-byte aligned rows
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
@@ -427,14 +463,435 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
       (err = tile_map<D>(&v_map, encode, v, B, T_len, K)) != cudaSuccess)
     return err;
   const size_t smem = TcTile<D>::SMEM_BYTES;
-  err = cudaFuncSetAttribute(flash_attention_bf16_kernel<D>,
+  err = cudaFuncSetAttribute(flash_attention_bf16_kernel<D, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float sm_scale = (float)(1.0 / sqrt((double)D));
   const dim3 grid(B * H, (S + TC_BM - 1) / TC_BM);
-  flash_attention_bf16_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<__nv_bfloat16*>(o), S, T_len, H, K, causal, window, softcap, sm_scale, q_map,
-      k_map, v_map);
+  flash_attention_bf16_kernel<D, LSE><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<__nv_bfloat16*>(o), lse, S, T_len, H, K, causal, window, softcap, sm_scale,
+      q_map, k_map, v_map);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- bf16 backward, wgmma
+//
+// The gradient of causal self-attention (S = T, positions from 0, no window
+// or softcap) from the forward's per-row log-sum-exp L, FlashAttention-2's
+// way: P = exp(Q K^T / sqrt(D) - L) is recomputed tile by tile, never stored.
+// With Delta = rowsum(dO o O):
+//   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Delta),
+//   dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D),
+// GQA's G = H / K query heads of a kv head summed into its dK and dV.
+// Three launches: Delta (one pass over O and dO); dK/dV, a block per (batch,
+// kv head, 64-row kv tile) walking the q tiles at or below the diagonal for
+// each of the G heads, dK and dV in f32 registers; dQ, a block per (batch, q
+// head, 64-row q tile) walking the kv tiles at or left of the diagonal, S and
+// dP recomputed.  No atomics: every gradient is summed in one block, in the
+// same order on every run.  Products are wgmma bf16 with f32 accumulators
+// (S^T = K Q^T, dP^T = V dO^T, S and dP with both operands in shared memory;
+// dV, dK, dQ with P or dS from registers).  P is rounded to bf16 as the
+// operand of dV, as the forward rounds it for PV.  dP and dS are formed in
+// f32, and dS enters dQ and dK as hi + lo, both bf16 (two products each):
+// about 16 of f32's 24 mantissa bits, where the reference's dS K and dS^T Q
+// are f32 products (its q and k upcast).  Tiles arrive by TMA as in the
+// forward, the dK/dV block's Q and dO tiles and the dQ block's K and V tiles
+// in two stages, the next in flight while one is multiplied.
+
+// C (64 x 64) = A B^T over D, A and B 64-row staged tiles read k-major.
+template <int D>
+__device__ __forceinline__ void abt_wgmma(float (&c)[32], const char* a_tile, const char* b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ptx::wgmma_ss_m64n64k16<0>(c, kmajor_desc<D>(a_tile, kk), kmajor_desc<D>(b_tile, kk), kk > 0);
+}
+
+// Rows r0 .. r0 + 63 (those below `rows`) of head `head` of x [B, rows,
+// heads, D] bf16: the warpgroup's 64 x D f32 fragment times `scale`, staged
+// through `stage` in padded rows and stored 16 bytes a thread.  Every thread
+// calls it; nobody may still read `stage`'s first 64 (D + 8) bf16.
+template <int D>
+__device__ __forceinline__ void store_tile(__nv_bfloat16* x, const float (&acc)[D / 8][4],
+                                           float scale, char* stage, int b, int r0, int rows,
+                                           int heads, int head) {
+  constexpr int PITCH = TcTile<D>::PITCH, CHUNKS = D / 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(stage);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + lane / 4 + 8 * i;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(tile + r * PITCH + dt * 8 + 2 * (lane % 4)) =
+          ptx::pack_bf16(acc[dt][2 * i] * scale, acc[dt][2 * i + 1] * scale);
+  }
+  __syncthreads();
+  __nv_bfloat16* xb = x + ((long)b * rows + r0) * heads * D + (long)head * D;
+  for (int c = tid; c < TC_BM * CHUNKS; c += TC_THREADS) {
+    const int r = c / CHUNKS, col = 8 * (c % CHUNKS);
+    if (r0 + r < rows)
+      *reinterpret_cast<uint4*>(xb + (long)r * heads * D + col) =
+          *reinterpret_cast<const uint4*>(tile + r * PITCH + col);
+  }
+}
+
+// The warpgroup's 64 x 64 f32 fragment as two bf16 A fragments, hi its
+// rounding and lo the rounding of what hi dropped (exact in f32): hi + lo
+// keeps about 16 mantissa bits.  `s` is left holding the remainders.
+__device__ __forceinline__ void to_a_frags_split(uint32_t (&hi)[TC_BN / 16][4],
+                                                 uint32_t (&lo)[TC_BN / 16][4],
+                                                 float (&s)[TC_BN / 8][4]) {
+  to_a_frags(hi, s);
+#pragma unroll
+  for (int kk = 0; kk < TC_BN / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 h = ptx::unpack_bf16(hi[kk][i]);  // a[kk][i] packs s[2 kk + i / 2][2 (i % 2) ..]
+      s[2 * kk + i / 2][2 * (i % 2)] -= h.x;
+      s[2 * kk + i / 2][2 * (i % 2) + 1] -= h.y;
+    }
+  to_a_frags(lo, s);
+}
+
+// delta [B, H, S] = rowsum(dO o O) in f32, D / 8 threads (16 bytes each) a row
+// of o and dout [B, S, H, D].
+template <int D>
+__global__ void flash_attention_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
+                                                 const __nv_bfloat16* __restrict__ dout,
+                                                 float* __restrict__ delta, int S, int H,
+                                                 long rows) {
+  constexpr int LANES = D / 8;
+  static_assert(32 % LANES == 0, "a row's threads within one warp");
+  const long row = ((long)blockIdx.x * blockDim.x + threadIdx.x) / LANES;
+  const int part = threadIdx.x % LANES;
+  float sum = 0.f;
+  if (row < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
+    const uint4 c = *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
+    const uint32_t* aw = reinterpret_cast<const uint32_t*>(&a);
+    const uint32_t* cw = reinterpret_cast<const uint32_t*>(&c);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float2 x = ptx::unpack_bf16(aw[w]), y = ptx::unpack_bf16(cw[w]);
+      sum = fmaf(x.x, y.x, fmaf(x.y, y.y, sum));
+    }
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && part == 0) {
+    const long bs = row / H;  // row = (b S + s) H + h
+    delta[((bs / S) * H + row % H) * S + bs % S] = sum;
+  }
+}
+
+// dK and dV of one 64-row kv tile of one kv head.  Shared memory: the K and V
+// tiles, then two stages of a Q and a dO tile; each stage's 64 L and 64 Delta
+// arrive by cp.async beside its TMA copies.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_attention_bwd_dkdv_kernel(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                int S, int H, int K, float sm_scale,
+                                const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap do_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map) {
+  using TT = TcTile<D>;
+  constexpr int NT = TC_BN / 8;
+  __shared__ __align__(8) uint64_t landed[3];  // K and V; stage 0; stage 1
+  __shared__ __align__(16) float rowstat[2][2][TC_BM];  // stage s: L, Delta of its q rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  char* smem = reinterpret_cast<char*>(smem_raw) + (1024 - ptx::smem_addr(smem_raw) % 1024) % 1024;
+  const char* k_tile = smem;
+  const char* v_tile = smem + TT::BYTES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / K, kh = blockIdx.x % K, G = H / K;
+  const int j = blockIdx.y;  // the kv tile: the heavy low tiles start first
+  const int kv0 = j * TC_BN;
+  const int per_head = (S + TC_BM - 1) / TC_BM - j;  // q tiles j .. the last
+  const int n_it = G * per_head;                     // (head, q tile) pairs
+  const float scale_log2 = sm_scale * LOG2E;
+
+  // iteration it: query head kh G + it / per_head, q tile j + it % per_head
+  const CUtensorMap* qm = &q_map;
+  const CUtensorMap* dom = &do_map;
+  auto head_of = [&](int it) { return kh * G + it / per_head; };
+  auto q0_of = [&](int it) { return (j + it % per_head) * TC_BM; };
+  auto issue = [&](int it, int st) {  // thread 0: the Q and dO tiles into stage st
+    char* dst = smem + (2 + 2 * st) * TT::BYTES;
+    ptx::mbar_expect_tx(&landed[1 + st], 2 * TT::BYTES);
+    tma_tile<D>(dst, qm, head_of(it), q0_of(it), b, &landed[1 + st]);
+    tma_tile<D>(dst + TT::BYTES, dom, head_of(it), q0_of(it), b, &landed[1 + st]);
+  };
+  auto stats = [&](int it, int st) {  // every thread: one L (tid < 64) or one Delta
+    const int r = tid % TC_BM, q = q0_of(it) + r;
+    const float* src = (tid < TC_BM ? lse : delta) + ((long)b * H + head_of(it)) * S;
+    ptx::cp_async_4(&rowstat[st][tid / TC_BM][r], q < S ? src + q : src, q < S ? 4 : 0);
+    ptx::cp_async_commit();
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) ptx::mbar_init(&landed[i], 1);
+    ptx::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    ptx::mbar_expect_tx(&landed[0], 2 * TT::BYTES);
+    tma_tile<D>(smem, &k_map, kh, kv0, b, &landed[0]);
+    tma_tile<D>(smem + TT::BYTES, &v_map, kh, kv0, b, &landed[0]);
+    issue(0, 0);
+  }
+  stats(0, 0);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float(&dk_flat)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&dk_acc[0][0]);
+  float(&dv_flat)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&dv_acc[0][0]);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_flat[i] = dv_flat[i] = 0.f;
+  const int c0 = 2 * (lane % 4);           // this lane's first q column of a tile
+  const int r0 = warp * 16 + lane / 4;     // this lane's kv rows: r0, r0 + 8
+  ptx::mbar_wait(&landed[0], 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    ptx::mbar_wait(&landed[1 + st], (it >> 1) & 1);  // the st-th use of stage st
+    ptx::cp_async_wait<0>();
+    __syncthreads();  // this stage's L and Delta are visible; the other stage is free
+    if (it + 1 < n_it) {
+      if (tid == 0) issue(it + 1, st ^ 1);
+      stats(it + 1, st ^ 1);
+    }
+    const char* q_tile = smem + (2 + 2 * st) * TT::BYTES;
+    const char* do_tile = q_tile + TT::BYTES;
+    const float* l_row = rowstat[st][0];
+    const float* d_row = rowstat[st][1];
+    const bool diag = q0_of(it) == kv0;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x 64 q columns
+    float s[NT][4], dp[NT][4];
+    float(&s_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&s[0][0]);
+    float(&dp_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&dp[0][0]);
+    ptx::wgmma_fence();
+    abt_wgmma<D>(s_flat, k_tile, q_tile);
+    ptx::wgmma_commit();
+    abt_wgmma<D>(dp_flat, v_tile, do_tile);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<1>();
+    ptx::fence_regs(s_flat);
+
+    // P^T = 2^(S^T scale log2(e) - L log2(e)); on the diagonal tile a kv row
+    // past the q column is masked (q rows past S read Q, dO, L and Delta as
+    // zeros, so their dS and their dV terms are 0)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 l = *reinterpret_cast<const float2*>(l_row + nt * 8 + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            ptx::exp2_approx(fmaf(s[nt][e], scale_log2, -(e & 1 ? l.y : l.x) * LOG2E));
+        s[nt][e] = diag && r0 + 8 * (e >> 1) > nt * 8 + c0 + (e & 1) ? 0.f : p;
+      }
+    }
+    uint32_t pf[TC_BN / 16][4];
+    to_a_frags(pf, s);
+
+    ptx::wgmma_wait<0>();
+    ptx::fence_regs(dp_flat);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 d = *reinterpret_cast<const float2*>(d_row + nt * 8 + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - (e & 1 ? d.y : d.x));
+    }
+    uint32_t ds_hi[TC_BN / 16][4], ds_lo[TC_BN / 16][4];
+    to_a_frags_split(ds_hi, ds_lo, dp);
+
+    // dV += P^T dO, dK += dS^T Q (hi, then lo): dO and Q read n-major, as V
+    // in the forward
+    ptx::fence_regs(dv_flat);
+    ptx::fence_regs(dk_flat);
+    ptx::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(dv_flat, pf[kk], do_tile, 16 * kk);
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(dk_flat, ds_hi[kk], q_tile, 16 * kk);
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(dk_flat, ds_lo[kk], q_tile, 16 * kk);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<0>();
+    ptx::fence_regs(dv_flat);
+    ptx::fence_regs(dk_flat);
+  }
+
+  // the stages are free: the last iteration issued no copy and every product has ended
+  store_tile<D>(dk, dk_acc, sm_scale, smem + 2 * TT::BYTES, b, kv0, S, K, kh);
+  store_tile<D>(dv, dv_acc, 1.f, smem + 2 * TT::BYTES, b, kv0, S, K, kh);
+}
+
+// dQ of one 64-row q tile of one q head.  Shared memory: the Q and dO tiles,
+// then two stages of a K and a V tile.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_attention_bwd_dq_kernel(__nv_bfloat16* __restrict__ dq, const float* __restrict__ lse,
+                              const float* __restrict__ delta, int S, int H, int K,
+                              float sm_scale, const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map) {
+  using TT = TcTile<D>;
+  constexpr int NT = TC_BN / 8;
+  __shared__ __align__(8) uint64_t landed[3];  // Q and dO; stage 0; stage 1
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  char* smem = reinterpret_cast<char*>(smem_raw) + (1024 - ptx::smem_addr(smem_raw) % 1024) % 1024;
+  const char* q_tile = smem;
+  const char* do_tile = smem + TT::BYTES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;  // heavy causal tiles first
+  const int j_hi = (min(q0 + TC_BM, S) - 1) / TC_BN;    // the diagonal's kv tile
+  const float scale_log2 = sm_scale * LOG2E;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) ptx::mbar_init(&landed[i], 1);
+    ptx::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    ptx::mbar_expect_tx(&landed[0], 2 * TT::BYTES);
+    tma_tile<D>(smem, &q_map, h, q0, b, &landed[0]);
+    tma_tile<D>(smem + TT::BYTES, &do_map, h, q0, b, &landed[0]);
+    ptx::mbar_expect_tx(&landed[1], 2 * TT::BYTES);
+    tma_tile<D>(smem + 2 * TT::BYTES, &k_map, kh, j_hi * TC_BN, b, &landed[1]);
+    tma_tile<D>(smem + 3 * TT::BYTES, &v_map, kh, j_hi * TC_BN, b, &landed[1]);
+  }
+
+  const int wq0 = q0 + warp * 16;   // the warp's first q row
+  const int row0 = wq0 + lane / 4;  // this lane's rows: row0, row0 + 8
+  const int c0 = 2 * (lane % 4);
+  float l2[2], dl[2];  // L log2(e) and Delta of this lane's rows (0 past S)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long at = ((long)b * H + h) * S + row0 + 8 * i;
+    const bool in = row0 + 8 * i < S;
+    l2[i] = in ? lse[at] * LOG2E : 0.f;
+    dl[i] = in ? delta[at] : 0.f;
+  }
+  float acc[D / 8][4];
+  float(&acc_flat)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&acc[0][0]);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_flat[i] = 0.f;
+  ptx::mbar_wait(&landed[0], 0);
+
+  int stage = 0;
+  for (int j = j_hi; j >= 0; --j, stage ^= 1) {
+    ptx::mbar_wait(&landed[1 + stage], ((j_hi - j) >> 1) & 1);
+    __syncthreads();  // nobody reads the other stage any more
+    if (j > 0 && tid == 0) {
+      char* nxt = smem + (2 + 2 * (stage ^ 1)) * TT::BYTES;
+      ptx::mbar_expect_tx(&landed[1 + (stage ^ 1)], 2 * TT::BYTES);
+      tma_tile<D>(nxt, &k_map, kh, (j - 1) * TC_BN, b, &landed[1 + (stage ^ 1)]);
+      tma_tile<D>(nxt + TT::BYTES, &v_map, kh, (j - 1) * TC_BN, b, &landed[1 + (stage ^ 1)]);
+    }
+    const char* k_tile = smem + (2 + 2 * stage) * TT::BYTES;
+    const char* v_tile = k_tile + TT::BYTES;
+    const int k0 = j * TC_BN;
+
+    // S = Q K^T and dP = dO V^T: 64 q rows x 64 kv columns
+    float s[NT][4], dp[NT][4];
+    float(&s_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&s[0][0]);
+    float(&dp_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&dp[0][0]);
+    ptx::wgmma_fence();
+    abt_wgmma<D>(s_flat, q_tile, k_tile);
+    ptx::wgmma_commit();
+    abt_wgmma<D>(dp_flat, do_tile, v_tile);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<1>();
+    ptx::fence_regs(s_flat);
+
+    // P; a tile that crosses the diagonal for some row of this warp masks the
+    // keys past each row (keys past T = S among them)
+    const bool diag = k0 + TC_BN - 1 > wq0;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ptx::exp2_approx(fmaf(s[nt][e], scale_log2, -l2[e >> 1]));
+        s[nt][e] = diag && k0 + nt * 8 + c0 + (e & 1) > row0 + 8 * (e >> 1) ? 0.f : p;
+      }
+
+    ptx::wgmma_wait<0>();
+    ptx::fence_regs(dp_flat);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - dl[e >> 1]);
+    uint32_t ds_hi[TC_BN / 16][4], ds_lo[TC_BN / 16][4];
+    to_a_frags_split(ds_hi, ds_lo, dp);
+
+    // dQ += dS K (hi, then lo), K read n-major as V in the forward
+    ptx::fence_regs(acc_flat);
+    ptx::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(acc_flat, ds_hi[kk], k_tile, 16 * kk);
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(acc_flat, ds_lo[kk], k_tile, 16 * kk);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<0>();
+    ptx::fence_regs(acc_flat);
+  }
+
+  // stage 0 is free: the last iteration issued no copy and every product has ended
+  store_tile<D>(dq, acc, sm_scale, smem + 2 * TT::BYTES, b, q0, S, H, h);
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int B, int S, int H, int K, cudaStream_t stream) {
+  // TMA and the 16-byte loads and stores need 16-byte aligned rows
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) % 16)
+    return cudaErrorMisalignedAddress;
+  EncodeTiled encode;
+  CUtensorMap q_map, do_map, k_map, v_map;
+  cudaError_t err;
+  if ((err = encode_tiled(&encode)) != cudaSuccess ||
+      (err = tile_map<D>(&q_map, encode, q, B, S, H)) != cudaSuccess ||
+      (err = tile_map<D>(&do_map, encode, dout, B, S, H)) != cudaSuccess ||
+      (err = tile_map<D>(&k_map, encode, k, B, S, K)) != cudaSuccess ||
+      (err = tile_map<D>(&v_map, encode, v, B, S, K)) != cudaSuccess)
+    return err;
+  const long rows = (long)B * S * H;
+  constexpr int DELTA_THREADS = 256;
+  flash_attention_bwd_delta_kernel<D>
+      <<<(unsigned)((rows * (D / 8) + DELTA_THREADS - 1) / DELTA_THREADS), DELTA_THREADS, 0,
+         stream>>>(static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+                   delta, S, H, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t smem = 6 * TcTile<D>::BYTES + 1024;
+  if ((err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess)
+    return err;
+  const float sm_scale = (float)(1.0 / sqrt((double)D));
+  const int tiles = (S + TC_BM - 1) / TC_BM;
+  flash_attention_bwd_dkdv_kernel<D><<<dim3(B * K, tiles), TC_THREADS, smem, stream>>>(
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), lse, delta, S, H, K,
+      sm_scale, q_map, do_map, k_map, v_map);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_attention_bwd_dq_kernel<D><<<dim3(B * H, tiles), TC_THREADS, smem, stream>>>(
+      static_cast<__nv_bfloat16*>(dq), lse, delta, S, H, K, sm_scale, q_map, do_map, k_map,
+      v_map);
   return cudaGetLastError();
 }
 
@@ -638,6 +1095,39 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 96: return (int)launch<96>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
     case 112: return (int)launch<112>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
     case 128: return (int)launch<128>(dtype, q, k, v, o, B, S, T_len, H, K, causal, window, softcap, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Training's causal self-attention: S = T, positions from 0, no window or
+// softcap, bf16; D 64 or 128.  The forward writes o [B,S,H,D] and lse
+// [B,H,S] f32, each row's log-sum-exp of its scaled scores (natural log).
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, int B, int S, int H, int K, int D,
+                                       void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return (int)launch_bf16<64, true>(q, k, v, o, B, S, S, H, K, 1, 0, 0.f, st, lse);
+    case 128: return (int)launch_bf16<128, true>(q, k, v, o, B, S, S, H, K, 1, 0, 0.f, st, lse);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Its gradient: dq [B,S,H,D] and dk, dv [B,S,K,D] in bf16 from dout
+// [B,S,H,D] and the forward's o and lse; delta [B,H,S] f32 is scratch.  Three
+// launches on `stream`; returns cudaGetLastError() and never synchronises.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const float* lse, float* delta, void* dq,
+                                   void* dk, void* dv, int B, int S, int H, int K, int D,
+                                   void* stream) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return (int)launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, K, st);
+    case 128:
+      return (int)launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, K, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

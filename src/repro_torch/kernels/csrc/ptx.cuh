@@ -277,6 +277,27 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "n"(TRANS_B), "r"(scale_d));
 }
 
+// d (64 x 64, f32) = a (64 x 16, bf16, k-major in shared memory at a_desc)
+// * b (16 x 64, bf16, shared memory at b_desc) + (scale_d ? d : 0), for the
+// warpgroup.  TRANS_B as above.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a_desc,
+                                                   uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %34;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "n"(TRANS_B), "r"(scale_d));
+}
+
 // d (64 x 256, f32) = a (64 x 16, bf16, k-major in shared memory at a_desc)
 // * b (16 x 256, bf16, shared memory at b_desc) + (scale_d ? d : 0), for the
 // warpgroup.  TRANS_B as above.

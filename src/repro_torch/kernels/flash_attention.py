@@ -1,10 +1,14 @@
-"""Wrapper of the hand-written Hopper flash-attention kernel.
+"""Wrappers of the hand-written Hopper flash-attention kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel in
-``repro/kernels/flash_attention.py``; it is bound through a plain C interface
-loaded with ctypes (see :mod:`repro_torch.kernels.build`).  This wrapper only
-launches it: it checks what it is given and raises on anything the kernel does
-not take, and never falls back to another implementation.
+The serving kernel (``csrc/flash_attention.cu``, :func:`flash_attention`)
+replaces the Pallas TPU kernel in ``repro/kernels/flash_attention.py``.  The
+training pair (:func:`flash_attention_fwd_lse`, :func:`flash_attention_bwd`)
+is causal self-attention and its gradient for the ``xla`` route's training
+step, which the reference leaves to XLA's fusion.  All are bound through a
+plain C interface loaded with ctypes (see :mod:`repro_torch.kernels.build`).
+These wrappers only launch them: they check what they are given and raise on
+anything the kernels do not take, and never fall back to another
+implementation.
 """
 
 from __future__ import annotations
@@ -17,18 +21,25 @@ from repro_torch.kernels import build
 
 # every multiple of 16 from 16 to 128: csrc/flash_attention.cu instantiates each
 HEAD_DIMS = tuple(range(16, 129, 16))
+# the training pair's head dims (bf16, causal, S = T)
+CAUSAL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _bind() -> ctypes.CDLL:
     lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        # q, k, v, o; B, S, T, H, K, D, causal, window; softcap; dtype; stream.
+    if lib.flash_attention_fwd.argtypes is None:
         # Pointers and the stream as c_void_p: a plain int would be cut to 32 bits.
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        # q, k, v, o; B, S, T, H, K, D, causal, window; softcap; dtype; stream
+        lib.flash_attention_fwd.argtypes = [ptr] * 4 + [i32] * 8 + [ctypes.c_float, i32, ptr]
+        # q, k, v, o, lse; B, S, H, K, D; stream
+        lib.flash_attention_fwd_lse.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        # q, k, v, o, dout, lse, delta, dq, dk, dv; B, S, H, K, D; stream
+        lib.flash_attention_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+        for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_lse,
+                   lib.flash_attention_bwd):
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -88,3 +99,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0  # kernel launches since the last reset
 flash_attention.noncausal_launches = 0  # of which with causal=False
+
+
+def _check_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    _check(q, k, v, None, None)
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in CAUSAL_HEAD_DIMS:
+        raise ValueError(f"the training kernels take bf16 with head_dim in {CAUSAL_HEAD_DIMS}; "
+                         f"got {q.dtype}, {q.shape[-1]}")
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"the training kernels take self-attention (S = T); got S "
+                         f"{q.shape[1]}, T {k.shape[1]}")
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Causal self-attention, positions from 0: q [B,S,H,D], k/v [B,S,K,D]
+    bf16 on one CUDA device -> (out [B,S,H,D] bf16, lse [B,H,S] f32, each
+    row's log-sum-exp of its scaled scores)."""
+    _check_train(q, k, v)
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = _bind().flash_attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        B, S, H, k.shape[2], D, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd_lse kernel launch failed: CUDA error {err}")
+    flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor,
+                        lse: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_attention_fwd_lse` at (q, k, v), from
+    dout, its output ``out`` and ``lse``: (dq, dk, dv) in bf16."""
+    _check_train(q, k, v)
+    B, S, H, D = q.shape
+    for name, t, shape, dtype in (("dout", dout, q.shape, q.dtype), ("out", out, q.shape, q.dtype),
+                                  ("lse", lse, (B, H, S), torch.float32)):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{name}: want {tuple(shape)} {dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    err = _bind().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, S, H, k.shape[2], D, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_fwd_lse.launches = 0  # launches since the last reset
+flash_attention_bwd.launches = 0  # backward passes (three kernel launches each)

@@ -8,14 +8,18 @@ mask ragged edges themselves.  For the same reason ``gmm`` takes any C, D and
 F, where the reference's raises unless they tile by its 128-wide blocks
 (``repro/kernels/moe_gmm.py:59-60``).
 
-None of the three has a backward kernel, and neither has the reference's: a
-gradient through a Pallas call raises under ``jax.grad``.  So each entry point
-raises ``NotImplementedError`` when autograd would record it (grad mode on and
-an input that requires grad), on either route, rather than hand back an output
-that silently carries no gradient.  Evaluation (``torch.inference_mode``) and
-serving (parameters that do not require grad) are unaffected; training runs
-the plain routes (``attention_impl="xla"``, ``ssd_chunked``, the einsum expert
-FFN), as the reference's does.
+None of the three Pallas kernels' counterparts has a backward kernel, and
+neither has the reference's: a gradient through a Pallas call raises under
+``jax.grad``.  So each of their entry points raises ``NotImplementedError``
+when autograd would record it (grad mode on and an input that requires grad),
+on either route, rather than hand back an output that silently carries no
+gradient.  Evaluation (``torch.inference_mode``) and serving (parameters that
+do not require grad) are unaffected; training runs the ``xla`` route
+(``attention_impl="xla"``), ``ssd_chunked`` and the einsum expert FFN, as the
+reference's does.  The ``xla`` route's causal self-attention, whose gradient
+the reference has (``jax.grad`` through XLA's fused einsums), runs on the
+card as :func:`causal_attention`: a ``torch.autograd.Function`` whose forward
+and backward are hand-written kernels (``csrc/flash_attention.cu``).
 
 Each entry point also takes DTensors (a model run under
 :class:`repro_torch.parallel.sharding.use_rules` with a mesh).  It then
@@ -30,15 +34,16 @@ query heads when they are not sharded with them, an expert weight's
 FSDP-sharded ``embed`` dim).
 
 On plain tensors each entry point calls a ``torch.library.custom_op``
-(``torch.ops.repro_torch.flash_attention``, ``.mamba_scan``, ``.gmm``) whose
+(``torch.ops.repro_torch.flash_attention``, ``.mamba_scan``, ``.gmm``,
+``.causal_attention_fwd`` and ``.causal_attention_bwd``) whose
 implementation picks the route by the tensor's device, as above.  Each op
 also has a fake implementation (the output's shape and dtype), so that a step
 traced on fake tensors (:mod:`repro_torch.launch.dryrun`) passes through the
 kernels without launching one, and a FLOP formula
 (``torch.utils.flop_counter.register_flop_formula``) that counts the work the
 kernel's bound counts in ``chip_smoke.py``: attention's QK^T and PV products
-over the unmasked pairs, the scan's intra-chunk, inter-chunk and state
-products, the grouped matmul's 2 E C D F.
+over the unmasked pairs (and the backward's five), the scan's intra-chunk,
+inter-chunk and state products, the grouped matmul's 2 E C D F.
 """
 
 from __future__ import annotations
@@ -159,6 +164,48 @@ def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window, logit_soft
     return 4 * B * H * D * attended_pairs(S, k_shape[1], causal, window)
 
 
+@torch.library.custom_op("repro_torch::causal_attention_fwd", mutates_args=())
+def _causal_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return ref.causal_attention_fwd_ref(q, k, v)
+    return _fa.flash_attention_fwd_lse(q, k, v)
+
+
+@_causal_attention_fwd_op.register_fake
+def _(q, k, v):
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, S), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::causal_attention_bwd", mutates_args=())
+def _causal_attention_bwd_op(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return ref.causal_attention_bwd_ref(dout, q, k, v, out, lse)
+    return _fa.flash_attention_bwd(dout, q, k, v, out, lse)
+
+
+@_causal_attention_bwd_op.register_fake
+def _(dout, q, k, v, out, lse):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.causal_attention_fwd)
+def _causal_attention_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
+                                **kwargs) -> int:
+    B, S, H, D = q_shape
+    return 4 * B * H * D * attended_pairs(S, S, True, None)
+
+
+@register_flop_formula(torch.ops.repro_torch.causal_attention_bwd)
+def _causal_attention_bwd_flops(dout_shape, q_shape, *args, out_shape=None, **kwargs) -> int:
+    # S = Q K^T again, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q
+    B, S, H, D = q_shape
+    return 10 * B * H * D * attended_pairs(S, S, True, None)
+
+
 @torch.library.custom_op("repro_torch::mamba_scan", mutates_args=())
 def _mamba_scan_op(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                    Cm: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -212,6 +259,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             flash_attention, causal=causal, window=window, logit_softcap=logit_softcap),
             q, k, v)
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, logit_softcap)
+
+
+class _CausalAttention(torch.autograd.Function):
+    """Causal self-attention whose forward keeps each row's log-sum-exp and
+    whose backward recomputes P from it.  Under a non-reentrant
+    ``checkpoint`` (remat) its forward runs again before its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = torch.ops.repro_torch.causal_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return tuple(torch.ops.repro_torch.causal_attention_bwd(dout.contiguous(),
+                                                                *ctx.saved_tensors))
+
+
+#: head dims :func:`causal_attention` takes on the card
+CAUSAL_HEAD_DIMS = _fa.CAUSAL_HEAD_DIMS
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of plain tensors, positions from 0: q [B,S,H,D],
+    k/v [B,S,K,D] -> [B,S,H,D], differentiable.  A CUDA tensor runs the
+    training kernels (bf16, D in :data:`CAUSAL_HEAD_DIMS`), a CPU tensor
+    their plain versions."""
+    return _CausalAttention.apply(q.contiguous(), k.contiguous(), v.contiguous())
 
 
 def mamba_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,

@@ -1,7 +1,10 @@
 """Plain PyTorch oracles for the hand-written kernels (the correctness contract).
 
 Line-for-line counterpart of ``repro/kernels/ref.py``: attention, the SSD
-scan, the grouped matmul and the SwiGLU expert FFN.
+scan, the grouped matmul and the SwiGLU expert FFN.  Besides, the training
+kernels' pair, which the reference leaves to XLA: causal self-attention
+returning its log-sum-exp (:func:`causal_attention_fwd_ref`) and the closed
+form of its gradient (:func:`causal_attention_bwd_ref`).
 """
 
 from __future__ import annotations
@@ -36,6 +39,56 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """[B, K, G, S, S] f32 scores of causal self-attention over 1/sqrt(D),
+    -1e30 above the diagonal, as ``attend_xla`` forms them."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, D).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    s = s / torch.sqrt(torch.tensor(D, dtype=torch.float32, device=q.device))
+    pos = torch.arange(S, device=q.device)
+    return torch.where(pos[None, :] <= pos[:, None], s, -1e30)
+
+
+def causal_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Causal self-attention (S = T, positions from 0) with ``attend_xla``'s
+    arithmetic: q [B,S,H,D], k/v [B,S,K,D] -> (out [B,S,H,D] in v's dtype,
+    lse [B,H,S] f32, each row's log-sum-exp of its scaled scores)."""
+    B, S, H, D = q.shape
+    s = _causal_scores(q, k)
+    p = torch.softmax(s, dim=-1)
+    # probs rounded to v's dtype before the PV product, as attend_xla does
+    out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v).reshape(B, S, H, D)
+    return out, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
+def causal_attention_bwd_ref(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`causal_attention_fwd_ref` in closed form, from P
+    recomputed from ``lse`` and Delta = rowsum(dout o out): dV = P^T dO,
+    dP = dO V^T, dS = P o (dP - Delta), dQ = dS K / sqrt(D), dK = dS^T Q /
+    sqrt(D), GQA's group summed into dK and dV; f32 sums.  P is rounded to
+    q's dtype as dV's operand, as the forward rounds it for PV (a no-op in
+    f32); dS stays f32, as the reference's is.  Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    p = torch.exp(_causal_scores(q, k) - lse.reshape(B, K, G, S, 1))
+    do = dout.reshape(B, S, K, G, D).float()
+    delta = (do * out.reshape(B, S, K, G, D).float()).sum(-1).permute(0, 2, 3, 1)
+    dv = torch.einsum("bkgst,bskgd->btkd", p.to(q.dtype).float(), do)
+    dp = torch.einsum("bskgd,btkd->bkgst", do, v.float())
+    ds = p * (dp - delta[..., None])
+    scale = 1.0 / torch.sqrt(torch.tensor(D, dtype=torch.float32, device=q.device))
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()).reshape(B, S, H, D) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, q.reshape(B, S, K, G, D).float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mamba_scan_ref(

@@ -3,7 +3,11 @@ caches for decode, and cross-attention (enc-dec).
 
 Counterpart of ``repro/models/attention.py``.  Two implementations:
 
-* ``xla``   - einsum + softmax (:func:`attend_xla`), the reference's name kept;
+* ``xla``   - einsum + softmax (:func:`attend_xla`), the reference's name kept.
+  Its causal self-attention of plain bf16 CUDA tensors (training's) runs as
+  the hand-written kernels through
+  :func:`repro_torch.kernels.ops.causal_attention`, forward and backward,
+  the single pass XLA's fusion gives the reference's einsums;
 * ``flash`` - the hand-written CUDA kernel through
   :func:`repro_torch.kernels.ops.flash_attention` (its plain version on CPU).
 """
@@ -105,6 +109,26 @@ def attend_xla(
     return out.reshape(B, S, H, D)
 
 
+def fused_causal(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
+                 kv_valid=None, window: int | None = None,
+                 logit_softcap: float | None = None) -> bool:
+    """Whether :func:`attend_xla`'s function at these inputs is the training
+    kernels' (:func:`repro_torch.kernels.ops.causal_attention`): causal
+    self-attention (S = T) with no cache mask, softcap or window narrower
+    than S, on plain bf16 CUDA tensors of a head dim the kernels take, with
+    one 1-D position tensor for queries and keys (or none).  As on the flash
+    route, those positions are taken to be arange(S): every caller passes
+    that, and the kernels mask key j from query i by j > i alone."""
+    S = q.shape[1]
+    return (causal and kv_valid is None and not logit_softcap
+            and (window is None or window >= S) and k.shape[1] == S
+            and q_positions is kv_positions
+            and (q_positions is None or q_positions.dim() == 1)
+            and not any(isinstance(t, DTensor) for t in (q, k, v))
+            and all(t.device.type == "cuda" and t.dtype == torch.bfloat16 for t in (q, k, v))
+            and q.shape[-1] in kernel_ops.CAUSAL_HEAD_DIMS)
+
+
 def attend(cfg: ModelConfig, q, k, v, **kw) -> torch.Tensor:
     if cfg.attention_impl == "flash" and kw.get("kv_valid") is None:
         return kernel_ops.flash_attention(
@@ -113,6 +137,8 @@ def attend(cfg: ModelConfig, q, k, v, **kw) -> torch.Tensor:
             window=kw.get("window"),
             logit_softcap=kw.get("logit_softcap"),
         )
+    if fused_causal(q, k, v, **kw):
+        return kernel_ops.causal_attention(q, k, v)
     return attend_xla(q, k, v, **kw)
 
 
@@ -220,6 +246,8 @@ def apply_attention(
                 logit_softcap=cfg.attn_logit_softcap,
             )
     else:
+        # positions are arange(S) here (every caller's), which the flash
+        # route and the xla route's training kernels take them to be
         out = attend(
             cfg, q, k, v,
             causal=causal,

@@ -1,0 +1,318 @@
+"""Training's causal self-attention on the ``xla`` route: the kernels' plain
+versions (``ref.causal_attention_fwd_ref`` / ``_bwd_ref``) and
+``ops.causal_attention`` on the CPU against ``jax.vjp`` of the reference's
+``repro.models.attention.attend_xla`` and against autograd through the
+port's, the dispatch in ``attention.attend`` (fake CUDA tensors stand in for
+the card's), and ``ops.causal_attention`` under remat.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+from torch.utils.checkpoint import checkpoint  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
+
+from repro.models import attention as jax_attn  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.testing import redraw_params_  # noqa: E402
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+def _qkv(B, S, H, K, D, dtype=torch.float32, seed=0, device="cpu"):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, n, D, generator=gen).to(dtype).to(device)
+                   for n in (H, K, K, H))
+    return q, k, v, do
+
+
+def _autograd(q, k, v, do):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = attn.attend_xla(q, k, v, causal=True)
+    return (out, *torch.autograd.grad(out, (q, k, v), do))
+
+
+@pytest.mark.parametrize("dtype,tol,S,H,K,D", [
+    (torch.float32, F32, S, H, K, D)
+    for H, K in ((4, 2), (4, 4)) for D in (64, 128) for S in (64, 100)
+] + [(torch.bfloat16, BF16, 100, 4, 2, 128)])
+def test_plain_versions_match_autograd_through_attend_xla(dtype, tol, S, H, K, D):
+    """The plain forward is attend_xla's arithmetic and its log-sum-exp is the
+    rows' of the scaled, masked scores; the closed-form backward from it
+    gives autograd's dq, dk and dv (GQA's group summed into dk and dv)."""
+    q, k, v, do = _qkv(2, S, H, K, D, dtype)
+    want_out, *want = _autograd(q, k, v, do)
+    out, lse = ref.causal_attention_fwd_ref(q, k, v)
+    assert out.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (2, H, S)
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+    grads = ref.causal_attention_bwd_ref(do, q, k, v, out, lse)
+    for name, got, exp in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == dtype and got.shape == exp.shape
+        torch.testing.assert_close(got.float(), exp.float(), **tol,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def _jax(t):
+    """A CPU tensor as a JAX array of the same dtype and values."""
+    a = jnp.asarray(t.float().numpy())
+    return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+
+def _reference_vjp(q, k, v, do):
+    """The reference's output and (dq, dk, dv): jax.vjp of its attend_xla."""
+    out, vjp = jax.vjp(lambda q, k, v: jax_attn.attend_xla(q, k, v, causal=True),
+                       _jax(q), _jax(k), _jax(v))
+    return (out, *vjp(_jax(do)))
+
+
+def _close_to_jax(got, want, tol, name):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,tol,S,H,K,D", [
+    (torch.float32, F32, S, H, K, D)
+    for H, K in ((4, 2), (4, 4)) for D in (64, 128) for S in (64, 100)
+] + [(torch.bfloat16, BF16, 100, 4, 2, 128)])
+def test_plain_versions_and_the_function_match_the_reference_vjp(dtype, tol, S, H, K, D):
+    """The plain forward and the closed-form backward, and the Function
+    through autograd on the CPU, give the reference's attend_xla output and
+    its gradient under jax.vjp on the same q, k, v and dout."""
+    q, k, v, do = _qkv(2, S, H, K, D, dtype, seed=4)
+    want_out, *want = _reference_vjp(q, k, v, do)
+    out, lse = ref.causal_attention_fwd_ref(q, k, v)
+    _close_to_jax(out, want_out, tol, "out")
+    grads = ref.causal_attention_bwd_ref(do, q, k, v, out, lse)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fn_out = ops.causal_attention(*leaves)
+    fn_grads = torch.autograd.grad(fn_out, leaves, do)
+    _close_to_jax(fn_out.detach(), want_out, tol, "Function out")
+    for name, got, fn_got, exp in zip(("dq", "dk", "dv"), grads, fn_grads, want):
+        assert got.dtype == dtype and tuple(got.shape) == exp.shape
+        _close_to_jax(got, exp, tol, name)
+        _close_to_jax(fn_got, exp, tol, f"Function {name}")
+
+
+def test_causal_attention_is_the_plain_pair_on_the_cpu():
+    """On CPU tensors the Function's forward and backward are the plain
+    versions, bit for bit."""
+    q, k, v, do = _qkv(2, 100, 4, 2, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.causal_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    want_out, lse = ref.causal_attention_fwd_ref(q, k, v)
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+    for got, exp in zip(grads, ref.causal_attention_bwd_ref(do, q, k, v, want_out, lse)):
+        torch.testing.assert_close(got, exp, rtol=0, atol=0)
+
+
+def test_causal_attention_under_checkpoint_gives_the_same_gradients(monkeypatch):
+    """Under remat's non-reentrant checkpoint the forward runs again before
+    the backward, and the gradients are those without it."""
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = ref.causal_attention_fwd_ref, ref.causal_attention_bwd_ref
+
+    def counted(name, fn):
+        def call(*a):
+            calls[name] += 1
+            return fn(*a)
+        return call
+
+    monkeypatch.setattr(ref, "causal_attention_fwd_ref", counted("fwd", fwd))
+    monkeypatch.setattr(ref, "causal_attention_bwd_ref", counted("bwd", bwd))
+    q, k, v, do = _qkv(2, 64, 4, 2, 64)
+    x = torch.randn(2, 64, 4, 64, generator=torch.Generator().manual_seed(3))
+
+    def block(q, k, v):
+        return torch.tanh(ops.causal_attention(q * x, k, v))
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(block(*leaves), leaves, do)
+    assert calls == {"fwd": 1, "bwd": 1}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(checkpoint(block, *leaves, use_reentrant=False), leaves, do)
+    assert calls == {"fwd": 3, "bwd": 2}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_flop_formulas_count_the_causal_products():
+    """FlopCounterMode counts the forward's two products and the backward's
+    five over the causal pairs."""
+    B, S, H, K, D = 2, 100, 4, 2, 64
+    q, k, v, do = _qkv(B, S, H, K, D)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    pairs = S * (S + 1) // 2
+    with FlopCounterMode(display=False) as fwd:
+        out = ops.causal_attention(*leaves)
+    assert fwd.get_total_flops() == 4 * B * H * D * pairs
+    with FlopCounterMode(display=False) as bwd:
+        out.backward(do)
+    assert bwd.get_total_flops() == 10 * B * H * D * pairs
+
+
+# --- dispatch -------------------------------------------------------------------------
+
+_CFG = configs.get("internlm2-1.8b", smoke=True)
+
+
+def _routes(q, k, v, **kw):
+    """(training kernels' calls, attend_xla calls) that one attend() call
+    made, counted at the two functions it dispatches to."""
+    calls = {"fused": 0, "plain": 0}
+    fused, plain = ops.causal_attention, attn.attend_xla
+
+    def count(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(ops, "causal_attention", count("fused", fused))
+        m.setattr(attn, "attend_xla", count("plain", plain))
+        attn.attend(_CFG, q, k, v, **kw)
+    return calls["fused"], calls["plain"]
+
+
+def _fake_cuda(B, S, H, K, D, dtype=torch.bfloat16, T=None):
+    T = S if T is None else T
+    return (torch.empty(B, S, H, D, dtype=dtype, device="cuda"),
+            torch.empty(B, T, K, D, dtype=dtype, device="cuda"),
+            torch.empty(B, T, K, D, dtype=dtype, device="cuda"))
+
+
+def test_positions_other_than_one_shared_1d_tensor_keep_attend_xla():
+    """Queries and keys with position tensors of their own, or 2-D ones,
+    keep attend_xla: the kernels take one arange(S) for both."""
+    with FakeTensorMode(), pytest.MonkeyPatch.context() as m:
+        m.setattr(attn, "attend_xla", lambda q, k, v, **kw: torch.empty_like(q))
+        qkv = _fake_cuda(2, 64, 4, 2, 128)
+        pos = torch.arange(64, device="cuda")
+        assert _routes(*qkv, causal=True, q_positions=pos, kv_positions=pos) == (1, 0)
+        assert _routes(*qkv, causal=True, q_positions=pos, kv_positions=pos.clone()) == (0, 1)
+        pos2 = pos.expand(2, 64)
+        assert _routes(*qkv, causal=True, q_positions=pos2, kv_positions=pos2) == (0, 1)
+
+
+def test_causal_self_attention_of_cuda_bf16_takes_the_kernels():
+    """Causal self-attention of plain bf16 CUDA tensors (a window at least S
+    wide is no window) goes through the training kernels' ops (their fake
+    implementations here: no autograd, whose engine would need a card)."""
+    with FakeTensorMode():
+        for D in ops.CAUSAL_HEAD_DIMS:
+            assert _routes(*_fake_cuda(2, 64, 4, 2, D), causal=True) == (1, 0)
+        assert _routes(*_fake_cuda(2, 64, 4, 2, 128), causal=True, window=64) == (1, 0)
+        out = attn.attend(_CFG, *_fake_cuda(2, 64, 4, 2, 128), causal=True)
+        assert out.shape == (2, 64, 4, 128) and out.dtype == torch.bfloat16
+
+
+BYPASSES = {
+    "kv_valid": dict(kv_valid=True),
+    "noncausal": dict(causal=False),
+    "softcap": dict(logit_softcap=30.0),
+    "narrow_window": dict(window=16),
+    "cross_length": dict(T=96),
+    "float32": dict(dtype=torch.float32),
+    "head_dim_96": dict(D=96),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BYPASSES) + ["cpu"])
+def test_bypasses_keep_attend_xla(case, monkeypatch):
+    """Each input the kernels do not take keeps attend_xla: on fake CUDA
+    tensors that meet every other condition the plain route is counted (its
+    attend_xla stubbed: a constant on a CUDA device cannot be made here), and
+    on CPU tensors attend() computes attend_xla's output bit for bit."""
+    kw = dict(BYPASSES.get(case, {}))
+    shape = dict(B=2, S=64, H=4, K=2, D=kw.pop("D", 128), T=kw.pop("T", None))
+    dtype = kw.pop("dtype", torch.bfloat16)
+    kw = {"causal": True, **kw}
+
+    def valid(q, k):
+        return torch.ones(q.shape[0], k.shape[1], dtype=torch.bool, device=q.device)
+
+    if case != "cpu":
+        with FakeTensorMode(), monkeypatch.context() as m:
+            m.setattr(attn, "attend_xla", lambda q, k, v, **kw: torch.empty_like(q))
+            q, k, v = _fake_cuda(**shape, dtype=dtype)
+            if kw.get("kv_valid") is True:
+                kw["kv_valid"] = valid(q, k)
+            assert _routes(q, k, v, **kw) == (0, 1)
+    q, k, v, _ = _qkv(shape["B"], shape["S"], shape["H"], shape["K"], shape["D"],
+                      torch.bfloat16 if case == "cpu" else dtype)
+    if shape["T"] is not None:
+        k, v = (torch.cat([t, t[:, :shape["T"] - shape["S"]]], dim=1) for t in (k, v))
+    if kw.get("kv_valid") is not None:
+        kw["kv_valid"] = valid(q, k)
+    assert _routes(q, k, v, **kw) == (0, 1)
+    torch.testing.assert_close(attn.attend(_CFG, q, k, v, **kw), attn.attend_xla(q, k, v, **kw),
+                               rtol=0, atol=0)
+
+
+def test_dtensors_keep_attend_xla():
+    """DTensor attention (a model under a mesh) runs attend_xla per shard."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    q, k, v, _ = _qkv(2, 64, 4, 2, 128, torch.bfloat16)
+    want = attn.attend_xla(q, k, v, causal=True)
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        dq, dk, dv = (distribute_tensor(t, mesh, (Replicate(), Replicate())) for t in (q, k, v))
+        fused, plain = _routes(dq, dk, dv, causal=True)
+        assert fused == 0 and plain >= 1  # attend_xla, then per shard
+        out = attn.attend(_CFG, dq, dk, dv, causal=True)
+        torch.testing.assert_close(out.full_tensor(), want, rtol=0, atol=0)
+
+
+def test_flash_attention_still_raises_under_grad():
+    q, k, v, _ = _qkv(2, 64, 4, 2, 64)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.flash_attention(q.requires_grad_(), k, v, causal=True)
+
+
+def test_a_remat_train_step_through_the_kernels_matches_attend_xla(monkeypatch):
+    """A SMOKE internlm2 gradient under remat "full" with the training
+    kernels' route taken on the CPU (their plain versions) runs their
+    forward twice a layer (forward and recompute) and their backward once,
+    and gives attend_xla's loss and gradients in f32."""
+    cfg = _CFG.replace(compute_dtype="float32", remat_policy="full")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    redraw_params_(params, 0)
+    t = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    want_loss, want = L.value_and_grad(Model(cfg).loss, params, batch)
+
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = ref.causal_attention_fwd_ref, ref.causal_attention_bwd_ref
+
+    def count_fwd(*a):
+        calls["fwd"] += 1
+        return fwd(*a)
+
+    def count_bwd(*a):
+        calls["bwd"] += 1
+        return bwd(*a)
+
+    monkeypatch.setattr(ref, "causal_attention_fwd_ref", count_fwd)
+    monkeypatch.setattr(ref, "causal_attention_bwd_ref", count_bwd)
+    monkeypatch.setattr(attn, "fused_causal", lambda q, k, v, **kw: kw.get("causal", False))
+    loss, grads = L.value_and_grad(Model(cfg).loss, params, batch)
+    assert calls == {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
+    torch.testing.assert_close(loss, want_loss, **F32)
+    exp = dict(L.flatten_specs(want))
+    for path, g in L.flatten_specs(grads):
+        torch.testing.assert_close(g, exp[path], **F32, msg=lambda m, p=path: f"{p}: {m}")
