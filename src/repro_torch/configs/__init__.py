@@ -3,6 +3,7 @@
 from .base import (
     ARCH_IDS,
     LONG_CONTEXT_ARCHS,
+    REFERENCE_ARCH_IDS,
     SHAPES,
     ModelConfig,
     MoEConfig,
@@ -18,6 +19,7 @@ from .base import (
 __all__ = [
     "ARCH_IDS",
     "LONG_CONTEXT_ARCHS",
+    "REFERENCE_ARCH_IDS",
     "SHAPES",
     "ModelConfig",
     "MoEConfig",

@@ -14,12 +14,33 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class MoEConfig:
-    n_experts: int = 8
+    """A mixture of experts.  The defaults are mixtral's rule: softmax top-k
+    over every expert the layer holds, capacity-bounded dispatch, the Switch
+    aux loss.  DeepSeek-V3's (moonlight) sets the fields after ``aux_loss_weight``:
+    a router wider than the experts held here (expert parallelism: the layer
+    holds ``n_experts`` of ``router_experts`` from ``first_expert`` on and
+    computes their part alone), shared experts, sigmoid scores whose top k is
+    picked with a correction bias, dropless dispatch, a sequence-wise balance
+    loss and the bias update after each step."""
+
+    n_experts: int = 8       # the experts this layer holds and computes
     top_k: int = 2
     d_ff: int = 0  # per-expert hidden size
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
     aux_loss_weight: float = 0.01
+    router_experts: int = 0       # the router's outputs; 0 -> n_experts
+    first_expert: int = 0         # the first held expert among the router's outputs
+    n_shared_experts: int = 0     # one SwiGLU of n_shared_experts * d_ff beside the routed
+    score_func: str = "softmax"   # softmax | sigmoid
+    routed_scale: float = 1.0     # sigmoid: the gates' factor
+    dispatch: str = "capacity"    # capacity | dropless
+    balance_alpha: float = 0.0    # sigmoid: the sequence-wise balance loss's weight
+    bias_update: float = 0.0      # sigmoid: the correction bias's step (gamma)
+
+    @property
+    def n_router(self) -> int:
+        return self.router_experts or self.n_experts
 
 
 @dataclass(frozen=True)
@@ -63,6 +84,15 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0        # 0 -> d_model // n_heads
+    # multi-head latent attention (DeepSeek-V3, no q compression): on where
+    # kv_lora_rank > 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # leading dense layers before an MoE stack, their SwiGLU width
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
     # attention
     rope_theta: float = 10_000.0
     sliding_window: int | None = None
@@ -168,6 +198,13 @@ ARCH_IDS = [
     "internvl2-2b",
 ]
 
+#: the architectures the JAX package has too: the ones the port is held
+#: against it for, and the dry-run's production cells
+REFERENCE_ARCH_IDS = list(ARCH_IDS)
+
+#: every architecture the port runs; the ones past the reference's train only
+ARCH_IDS += ["moonlight-16b-a3b"]
+
 _MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "command-r-35b": "command_r_35b",
@@ -179,6 +216,7 @@ _MODULES = {
     "zamba2-7b": "zamba2_7b",
     "whisper-medium": "whisper_medium",
     "internvl2-2b": "internvl2_2b",
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
 }
 
 

@@ -388,7 +388,8 @@ def run_cell(
 
 
 def iter_cells(mesh_kinds):
-    for arch in configs.ARCH_IDS:
+    """The reference's production cells: its architectures' shapes."""
+    for arch in configs.REFERENCE_ARCH_IDS:
         for shape in configs.shapes_for(arch):
             for mesh_kind in mesh_kinds:
                 yield arch, shape.name, mesh_kind

@@ -1,5 +1,6 @@
 """Grouped-query attention with RoPE, causal/sliding-window masking, KV
-caches for decode, and cross-attention (enc-dec).
+caches for decode, and cross-attention (enc-dec); multi-head latent
+attention (DeepSeek-V3's, :func:`apply_mla`) for training.
 
 Counterpart of ``repro/models/attention.py``.  Two implementations:
 
@@ -17,13 +18,17 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamSpec
 from repro_torch.parallel.sharding import distribute_input, grad_as_forward, shard, unshard_dims
 
 
 def init_attention(cfg: ModelConfig, d_model: int | None = None):
+    if cfg.kv_lora_rank:
+        return init_mla(cfg)
     d = d_model or cfg.d_model
     hd = cfg.resolved_head_dim
     return {
@@ -80,7 +85,7 @@ def attend_xla(
         return kernel_ops.attention_per_shard(local, q, k, v, q_positions,
                                               kv_positions, kv_valid)
     B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
     qg = q.reshape(B, S, K, G, D)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
@@ -106,7 +111,7 @@ def attend_xla(
     probs = torch.softmax(scores, dim=-1)
     # probs are rounded to v's dtype before the PV product, as in the reference
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
-    return out.reshape(B, S, H, D)
+    return out.reshape(B, S, H, Dv)
 
 
 def fused_causal(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
@@ -202,7 +207,12 @@ def apply_attention(
     """Self-attention (train/prefill/decode).  Returns (out, updated_cache).
 
     With a cache the attention is causal whatever ``causal`` says, as in the
-    reference (``repro/models/attention.py:149-166``)."""
+    reference (``repro/models/attention.py:149-166``).  Latent attention
+    (``kv_lora_rank``) has no cache yet: :func:`apply_mla`, training's."""
+    if cfg.kv_lora_rank:
+        if cache is not None:
+            raise NotImplementedError("latent attention has no KV cache yet")
+        return apply_mla(params, cfg, x, positions, window=window), None
     hd = cfg.resolved_head_dim
     q = _split_heads(L.apply_dense(params["wq"], x), cfg.n_heads, hd)
     k = _split_heads(L.apply_dense(params["wk"], x), cfg.n_kv_heads, hd)
@@ -258,6 +268,62 @@ def apply_attention(
         )
     out = shard(out, "batch", "seq", "heads", "head_dim")
     return L.apply_dense(params["wo"], _merge_heads(out)), new_cache
+
+
+MLA_SCORES_BYTES = 1 << 30  # the f32 scores of one slice of rows in apply_mla
+
+
+def init_mla(cfg: ModelConfig):
+    """Latent attention's weights: q, the latent down-projection to
+    ``kv_lora_rank`` + the shared rotary key part, the latent's RMSNorm, its
+    up-projection to each head's k_nope and v, and the output."""
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": L.init_dense(d, H * (nope + rope), ("embed", "qkv")),
+        "wkv_a": L.init_dense(d, r + rope, ("embed", "rank")),
+        "kv_norm": {"scale": ParamSpec((r,), ("rank",), init="ones")},
+        "wkv_b": L.init_dense(r, H * (nope + dv), ("rank", "qkv")),
+        "wo": L.init_dense(H * dv, d, ("qkv", "embed")),
+    }
+
+
+def apply_mla(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
+              window: int | None = None) -> torch.Tensor:
+    """DeepSeek-V3's multi-head latent attention (arXiv:2412.19437 §2.1.1)
+    without q compression, causal, at ``positions`` arange(S):
+
+        q = W_q h, split per head into q_nope and q_pe;
+        [c_kv; k_pe] = W_kva h, c_kv through its RMSNorm;
+        [k_nope; v] = W_kvb c_kv, per head;
+        q_pe and the one k_pe that every head shares rotated (split-half RoPE);
+        softmax((q_nope k_nope + q_pe k_pe) / sqrt(nope + rope)) v, then W_o.
+
+    The scores run on the einsum route (:func:`attend_xla`): no kernel takes a
+    q.k width (192) other than v's (128)."""
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    with tracing.span("attention.mla"):
+        q = _split_heads(L.apply_dense(params["wq"], x), H, nope + rope)
+        c_kv, k_pe = torch.split(L.apply_dense(params["wkv_a"], x), [r, rope], dim=-1)
+        c_kv = L.apply_norm(params["kv_norm"], c_kv, "rmsnorm", cfg.norm_eps)
+        kv = _split_heads(L.apply_dense(params["wkv_b"], c_kv), H, nope + dv)
+    q_nope, q_pe = torch.split(q, [nope, rope], dim=-1)
+    k_nope, v = torch.split(kv, [nope, dv], dim=-1)
+    q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
+    k_pe = L.apply_rope(k_pe.unsqueeze(-2), positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:-1], rope)], dim=-1)
+    # the f32 scores a slice of rows at a time, each slice's under
+    # MLA_SCORES_BYTES: the temporaries of one slice live at once, not of the
+    # whole batch (some 20 GB at 16 rows of 2048)
+    B, S = q.shape[0], q.shape[1]
+    rows = max(1, MLA_SCORES_BYTES // (4 * H * S * S))
+    out = torch.cat([attend_xla(q[i:i + rows], k[i:i + rows], v[i:i + rows], causal=True,
+                                q_positions=positions, kv_positions=positions, window=window,
+                                logit_softcap=cfg.attn_logit_softcap)
+                     for i in range(0, B, rows)])
+    return L.apply_dense(params["wo"], _merge_heads(out))
 
 
 def init_cross_attention(cfg: ModelConfig):

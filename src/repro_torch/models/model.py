@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
@@ -79,8 +80,9 @@ def active_params_analytic(cfg: ModelConfig) -> int:
         return total
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     per_expert = 3 * cfg.d_model * cfg.moe.d_ff
-    expert_total = cfg.n_layers * e * per_expert
-    expert_active = cfg.n_layers * k * per_expert
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    expert_total = n_moe * e * per_expert
+    expert_active = n_moe * k * per_expert
     return total - expert_total + expert_active
 
 
@@ -97,8 +99,26 @@ class Model:
         return L.materialize(generator, init_spec(self.cfg),
                              getattr(torch, self.cfg.param_dtype), dev)
 
+    def init_buffers(self, device=None) -> dict:
+        """State that training keeps beside the params, which no gradient
+        reaches: for a router that moves a correction bias, ``router_bias``
+        [MoE layers, router outputs] f32 zeros; else nothing."""
+        moe = self.cfg.moe
+        if moe is None or not moe.bias_update:
+            return {}
+        n_moe = self.cfg.n_layers - self.cfg.first_dense_layers
+        return {"router_bias": torch.zeros((n_moe, moe.n_router), dtype=torch.float32,
+                                           device=resolve_device(device))}
+
+    def balance(self, buffers: dict) -> moe_mod.Balance | None:
+        """The :class:`repro_torch.models.moe.Balance` over ``buffers``'s bias
+        (updated in place), or None where they hold none."""
+        return moe_mod.Balance(buffers["router_bias"]) if "router_bias" in buffers else None
+
     # --------------------------------------------------------------- forward
-    def forward(self, params, batch):
+    def forward(self, params, batch, balance=None):
+        """``balance``: the dropless MoE routers' (:meth:`balance`), whose bias
+        picks the experts and whose counts the forward writes."""
         if self.cfg.family == "encdec":
             return encdec_mod.forward_encdec(params, self.cfg, batch["frames"], batch["tokens"])
         if self.cfg.family == "ssm":
@@ -106,19 +126,29 @@ class Model:
         if self.cfg.family == "hybrid":
             return tfm.forward_zamba(params, self.cfg, batch["tokens"])
         return tfm.forward_lm(params, self.cfg, batch["tokens"],
-                              batch.get("pixel_embeds"))
+                              batch.get("pixel_embeds"), balance)
 
-    def loss(self, params, batch):
-        """Mean next-token cross-entropy in f32, plus the weighted router aux
-        loss for MoE configs."""
-        logits, aux = self.forward(params, batch)
+    def loss(self, params, batch, balance=None):
+        """Mean next-token cross-entropy in f32, plus forward's router aux loss
+        for MoE configs, times ``balance_alpha`` for a sigmoid router and
+        ``aux_loss_weight`` for a softmax one."""
+        logits, aux = self.forward(params, batch, balance)
         ce = L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
-        if self.cfg.moe is not None:
-            ce = ce + self.cfg.moe.aux_loss_weight * aux
+        moe = self.cfg.moe
+        if moe is not None:
+            weight = moe.balance_alpha if moe.score_func == "sigmoid" else moe.aux_loss_weight
+            ce = ce + weight * aux
         return ce
 
     # --------------------------------------------------------------- serving
+    def _require_cache(self) -> None:
+        if self.cfg.kv_lora_rank:
+            raise NotImplementedError(
+                f"{self.cfg.arch}: latent attention has no KV cache yet, so it trains "
+                "and does not serve; see ROADMAP.md")
+
     def prefill(self, params, batch, max_len: int | None):
+        self._require_cache()
         if self.cfg.family == "encdec":
             return encdec_mod.prefill_encdec(params, self.cfg, batch["frames"], batch["tokens"])
         if self.cfg.family == "ssm":
@@ -129,6 +159,7 @@ class Model:
                               batch.get("pixel_embeds"))
 
     def init_cache(self, batch_size: int, max_len: int, device=None):
+        self._require_cache()
         cfg, dev = self.cfg, resolve_device(device)
         dtype = tfm.compute_dtype(cfg)
         if cfg.family == "encdec":
@@ -140,6 +171,7 @@ class Model:
         return attn_mod.init_kv_cache(cfg, cfg.n_layers, batch_size, max_len, dtype, dev)
 
     def decode_step(self, params, tokens_new, cache, position: int):
+        self._require_cache()
         if self.cfg.family == "encdec":
             return encdec_mod.decode_encdec(params, self.cfg, tokens_new, cache, position)
         if self.cfg.family == "ssm":

@@ -16,10 +16,19 @@ as XLA splits the reference's (:func:`_experts_split`).
 ``use_gmm=True`` runs the expert FFN through the grouped-matmul kernel
 (:func:`repro_torch.kernels.ops.moe_expert_mlp`).  As in the reference, no
 model path sets it: ``apply_block`` calls :func:`apply_moe` without it.
+
+``dispatch="dropless"`` (DeepSeek-V3's layer, :func:`apply_dropless`) drops
+nothing: each held expert gathers the rows routed to it, and its gated output
+is added back where they came from.  The layer may hold a share of the
+router's experts (expert parallelism, one chip's share): it routes over all
+of them and computes its own experts' part alone.  Beside it run shared
+experts, the sequence-wise balance loss and the correction bias
+(:class:`Balance`) that the train step moves after each optimizer step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
 from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import shard
@@ -36,16 +46,21 @@ DEFAULT_GROUP_SIZE = 2048
 
 
 def init_moe(cfg: ModelConfig):
+    """The router (over ``n_router`` experts), the held experts and, where the
+    layer has them, the shared experts as one SwiGLU."""
     moe = cfg.moe
     d, f, e = cfg.d_model, moe.d_ff, moe.n_experts
-    return {
-        "router": {"w": ParamSpec((d, e), ("embed", "experts"), scale=1.0)},
+    spec = {
+        "router": {"w": ParamSpec((d, moe.n_router), ("embed", "experts"), scale=1.0)},
         "experts": {
             "gate": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
             "up": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
             "down": ParamSpec((e, f, d), ("experts", "mlp", "embed")),
         },
     }
+    if moe.n_shared_experts:
+        spec["shared"] = L.init_mlp(d, moe.n_shared_experts * f, "swiglu")
+    return spec
 
 
 def _round_up(x: int, m: int) -> int:
@@ -126,8 +141,14 @@ def apply_moe(
     x: torch.Tensor,  # [B, S, D]
     group_size: int = DEFAULT_GROUP_SIZE,
     use_gmm: bool = False,
+    balance: Balance | None = None,
+    layer: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output [B,S,D], aux_loss scalar)."""
+    """Returns (output [B,S,D], aux_loss scalar).  ``balance`` and ``layer``
+    (the layer's index among the stack's MoE layers) are the dropless layer's
+    (:func:`apply_dropless`)."""
+    if cfg.moe.dispatch == "dropless":
+        return apply_dropless(params, cfg, x, balance, layer)
     B, S, D = x.shape
     T = B * S
     groups = group_tokens(T, group_size)
@@ -285,3 +306,134 @@ def _experts_split(cfg: ModelConfig, use_gmm: bool, hp: tuple, split: list[int],
         _combine, grad(hs, {4: 1}, {1, 3}), (fol(hs, {1: 2, 4: 1}), grad(hs, {1: 1}, {3})),
         mesh, in_grad_placements=(grad(hs, {1: 2, 4: 1}, {3}), grad(hs, {1: 1}, {4})))(
         combine, expert_out)
+
+
+# ---------------------------------------------------------------------------
+# Dropless dispatch over a held share of the router's experts (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Balance:
+    """DeepSeek-V3's auxiliary-loss-free balancing (arXiv:2412.19437 §2.1.2)
+    of a stack's MoE layers: ``bias`` [L, n_router] f32, each router's
+    correction bias, which moves the selection alone (no gradient reaches
+    it, and the optimizer leaves it be), and ``load``, each layer's expert
+    counts [n_router] of the forward that routed there last.  A remat's
+    recompute routes the same tokens again and writes the same counts."""
+
+    bias: torch.Tensor
+    load: dict = dataclasses.field(default_factory=dict)
+    total: torch.Tensor | None = None
+
+    def end_forward(self) -> None:
+        """Adds the counts of the forward just done (a microbatch's) to the step's."""
+        load = torch.stack([self.load[i] for i in range(self.bias.shape[0])])
+        self.total = load if self.total is None else self.total + load
+        self.load = {}
+
+    @torch.no_grad()
+    def update_(self, gamma: float) -> None:
+        """After the optimizer step: b_i += gamma * sign(mean load - load_i),
+        each layer over the step's counts, then the counts cleared."""
+        with tracing.span("moe.balance") as s:
+            load = self.total.float()
+            self.bias.add_(gamma * torch.sign(load.mean(-1, keepdim=True) - load))
+            self.total = None
+            if tracing.enabled():
+                s.set(bias_abs_max=self.bias.abs().max())
+
+
+def select_experts(logits: torch.Tensor, cfg: ModelConfig,
+                   bias: torch.Tensor | None = None):
+    """(choice [N, k] expert ids among the router's, gates [N, k] f32, scores
+    [N, E] f32) of router logits [N, E] f32.  ``softmax``: the top k logits,
+    their softmax the gates; ``sigmoid``: s = sigmoid(logits), the top k of
+    s + bias (the bias picks, it weighs nothing), the gates s at the chosen
+    over their sum times ``routed_scale``."""
+    moe = cfg.moe
+    if moe.score_func == "softmax":
+        vals, choice = torch.topk(logits, moe.top_k, dim=-1)
+        return choice, torch.softmax(vals, dim=-1), torch.softmax(logits, dim=-1)
+    scores = torch.sigmoid(logits)
+    pick = scores if bias is None else scores + bias
+    choice = torch.topk(pick, moe.top_k, dim=-1).indices
+    gates = scores.gather(-1, choice)
+    gates = gates / gates.sum(-1, keepdim=True)
+    return choice, gates * moe.routed_scale, scores
+
+
+def sequence_balance_loss(scores: torch.Tensor, counts: torch.Tensor, cfg: ModelConfig):
+    """DeepSeek-V3's sequence-wise balance loss (eqs. 17-20) before alpha, the
+    mean over sequences: sum_i f_i P_i, f_i = E / (k S) times the tokens
+    choosing i, P_i the mean over the sequence of i's score over the token's
+    sum.  scores [B, S, E] f32; counts [B, E] (a constant)."""
+    E, k = scores.shape[-1], cfg.moe.top_k
+    f = counts.float() * (E / (k * scores.shape[1]))
+    p = (scores / scores.sum(-1, keepdim=True)).mean(1)
+    return (f * p).sum(-1).mean()
+
+
+def apply_dropless(params, cfg: ModelConfig, x: torch.Tensor, balance: Balance | None,
+                   layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer without capacity: x [B, S, D] -> (shared experts + the
+    held experts' gated outputs [B, S, D], aux).  The router scores all
+    ``n_router`` experts; the layer computes the rows routed to the
+    ``n_experts`` it holds (from ``first_expert`` on), and what the others
+    would add is left out.  The held rows are gathered in expert order
+    (one sort of the choices, one read of the counts to the host), run
+    through each expert's SwiGLU and added back with their gates: no tensor
+    scales with tokens x experts x capacity (the experts' slab is padded to
+    the busiest held expert's rows alone).  aux: the sequence-wise
+    balance loss for sigmoid scores, the Switch loss for softmax ones."""
+    moe = cfg.moe
+    B, S, D = x.shape
+    N, k, E = B * S, moe.top_k, moe.n_router
+    lo, held = moe.first_expert, moe.n_experts
+    if sharding.is_dtensor(x):
+        raise NotImplementedError("dropless dispatch runs on one device's tensors")
+    xf = x.reshape(N, D)
+    with tracing.span("moe.route") as route:
+        logits = xf.float() @ params["router"]["w"].float()            # [N, E]
+        bias = balance.bias[layer] if balance is not None else None
+        choice, gates, scores = select_experts(logits, cfg, bias)
+        per_row = torch.zeros((B, E), dtype=torch.int64, device=x.device).scatter_add_(
+            1, choice.reshape(B, S * k), torch.ones_like(choice).reshape(B, S * k))
+        counts = per_row.sum(0)
+        if balance is not None:
+            balance.load[layer] = counts
+        if moe.score_func == "sigmoid":
+            aux = sequence_balance_loss(scores.reshape(B, S, E), per_row, cfg)
+        else:
+            aux = E * torch.sum(scores.mean(0) * F.one_hot(choice[:, 0], E).float().mean(0))
+        # the held experts' rows, in expert order: one sort of the choices
+        order = torch.argsort(choice.reshape(-1), stable=True)
+        host = counts.tolist()
+        start, rows = sum(host[:lo]), host[lo:lo + held]
+        mine = order[start:start + sum(rows)]
+        if tracing.enabled():
+            route.set(held_rows=sum(rows), held_max_rows=max(rows), held_experts=held)
+    if "shared" in params:
+        with tracing.span("moe.shared") as s:
+            out = s.grad_out(L.apply_mlp(params["shared"], s.grad_in(xf), "swiglu")).float()
+    else:
+        out = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+    with tracing.span("moe.experts") as s:
+        widest = max(rows)
+        if widest:
+            # the held rows, in expert order, each to its slot of a zero-padded
+            # slab [held, widest, D]: three batched products run every held
+            # expert at once, where products an expert at a time would run at
+            # the pace the host launches them
+            tokens = mine // k
+            local = choice.reshape(-1)[mine] - lo
+            first = torch.cumsum(counts[lo:lo + held], 0) - counts[lo:lo + held]
+            slot = local * widest + torch.arange(len(mine), device=x.device) - first[local]
+            slab = xf.new_zeros(held * widest, D).index_copy(0, slot, s.grad_in(xf)[tokens])
+            slab = slab.view(held, widest, D)
+            w = {n: params["experts"][n].to(x.dtype) for n in ("gate", "up", "down")}
+            h = F.silu(torch.bmm(slab, w["gate"])) * torch.bmm(slab, w["up"])
+            y = torch.bmm(h, w["down"]).reshape(held * widest, D)[slot]
+            y = y.float() * gates.reshape(-1)[mine, None]
+            out = out.index_add(0, tokens, s.grad_out(y))
+    return out.to(x.dtype).reshape(B, S, D), aux

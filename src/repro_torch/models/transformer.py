@@ -87,26 +87,31 @@ def _remat(fn, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_block(cfg: ModelConfig):
+def init_block(cfg: ModelConfig, dense: bool = False):
+    """One block's spec; ``dense``: one of an MoE model's leading dense
+    layers, its MLP ``dense_d_ff`` wide."""
     spec: dict[str, Any] = {
         "attn_norm": L.init_norm(cfg.d_model, cfg.norm_type, cfg.use_bias),
         "attn": attn.init_attention(cfg),
     }
     if not cfg.parallel_residual:
         spec["mlp_norm"] = L.init_norm(cfg.d_model, cfg.norm_type, cfg.use_bias)
-    if cfg.family == "moe" or (cfg.moe is not None and cfg.family != "dense"):
+    if not dense and (cfg.family == "moe" or (cfg.moe is not None and cfg.family != "dense")):
         spec["moe"] = moe_mod.init_moe(cfg)
     else:
-        spec["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, cfg.use_bias)
+        d_ff = cfg.dense_d_ff if dense else cfg.d_ff
+        spec["mlp"] = L.init_mlp(cfg.d_model, d_ff, cfg.mlp_type, cfg.use_bias)
     return spec
 
 
-def _ffn(params, cfg: ModelConfig, h: torch.Tensor):
+def _ffn(params, cfg: ModelConfig, h: torch.Tensor, balance=None, layer: int | None = None):
     """(FFN output, aux loss): the MoE layer, called without ``use_gmm`` as the
-    reference's block calls it, or the dense MLP with aux 0.0 (a Python float,
-    so prefill and decode of a dense stack launch nothing for it)."""
+    reference's block calls it (``balance`` and the layer's index among the
+    MoE layers for a dropless one), or the dense MLP with aux 0.0 (a Python
+    float, so prefill and decode of a dense stack launch nothing for it)."""
     if "moe" in params:
-        return moe_mod.apply_moe(params["moe"], cfg, h)
+        return moe_mod.apply_moe(params["moe"], cfg, h, balance=balance,
+                                 layer=(layer or 0) - cfg.first_dense_layers)
     return L.apply_mlp(params["mlp"], h, cfg.mlp_type), 0.0
 
 
@@ -118,9 +123,11 @@ def apply_block(
     cache: dict | None = None,
     cache_position: int | None = None,
     layer: int | None = None,
+    balance=None,
 ):
     """Returns (x, new_cache, aux_loss); ``layer`` (the block's index) labels
-    its spans."""
+    its spans; ``balance`` (:class:`repro_torch.models.moe.Balance`) is a
+    dropless MoE layer's."""
     h = L.apply_norm(params["attn_norm"], x, cfg.norm_type, cfg.norm_eps)
     with tracing.span("block.attention", layer=layer) as s:
         attn_out, new_cache = attn.apply_attention(
@@ -132,14 +139,14 @@ def apply_block(
     if cfg.parallel_residual:
         # command-r style: attention and FFN read the same normed input
         with tracing.span("block.ffn", layer=layer) as s:
-            ffn_out, aux = _ffn(params, cfg, s.grad_in(h))
+            ffn_out, aux = _ffn(params, cfg, s.grad_in(h), balance, layer)
             ffn_out = s.grad_out(ffn_out)
         x = x + attn_out + ffn_out
     else:
         x = x + attn_out
         h = L.apply_norm(params["mlp_norm"], x, cfg.norm_type, cfg.norm_eps)
         with tracing.span("block.ffn", layer=layer) as s:
-            ffn_out, aux = _ffn(params, cfg, s.grad_in(h))
+            ffn_out, aux = _ffn(params, cfg, s.grad_in(h), balance, layer)
             ffn_out = s.grad_out(ffn_out)
         x = x + ffn_out
     x = shard(x, "batch", "seq", "embed")
@@ -180,33 +187,49 @@ def lm_logits(params, cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
-# Dense / MoE LM (homogeneous stack)
+# Dense / MoE LM: one stack, or an MoE model's leading dense layers then its
+# MoE layers, each stack of one kind of block
 # ---------------------------------------------------------------------------
 
 
 def init_lm(cfg: ModelConfig):
+    """``blocks`` [n_layers - first_dense_layers, ...], and before them
+    ``dense_blocks`` [first_dense_layers, ...] where the model has any."""
     spec = init_lm_shell(cfg)
-    spec["blocks"] = stack_specs(init_block(cfg), cfg.n_layers)
+    if cfg.first_dense_layers:
+        spec["dense_blocks"] = stack_specs(init_block(cfg, dense=True), cfg.first_dense_layers)
+    spec["blocks"] = stack_specs(init_block(cfg), cfg.n_layers - cfg.first_dense_layers)
     return spec
 
 
+def _lm_blocks(params, cfg: ModelConfig) -> list:
+    """Every block's params in order, the leading dense stack's first."""
+    n_dense = cfg.first_dense_layers
+    dense = unstack(params["dense_blocks"], n_dense) if n_dense else []
+    return dense + unstack(params["blocks"], cfg.n_layers - n_dense)
+
+
 def forward_lm(params, cfg: ModelConfig, tokens: torch.Tensor,
-               pixel_embeds: torch.Tensor | None = None):
-    """Training/eval forward.  Returns (logits, aux_loss): the MoE router's
-    aux loss averaged over the layers, 0 for the dense stack."""
+               pixel_embeds: torch.Tensor | None = None, balance=None):
+    """Training/eval forward.  Returns (logits, aux_loss): a softmax router's
+    Switch loss averaged over the layers, a sigmoid router's sequence-wise
+    balance loss summed over them (DeepSeek-V3 eq. 17), 0 for the dense stack.
+    ``balance``: the dropless MoE layers' (:class:`repro_torch.models.moe.Balance`)."""
     x = embed_tokens(params, cfg, tokens, pixel_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
     def body(x, block_params, i):
-        x, _, a = apply_block(block_params, cfg, x, positions, layer=i)
+        x, _, a = apply_block(block_params, cfg, x, positions, layer=i, balance=balance)
         return x, a
 
     body = _remat(body, cfg)
     aux = torch.zeros((), device=tokens.device)
-    for i, block_params in enumerate(unstack(params["blocks"], cfg.n_layers)):
+    for i, block_params in enumerate(_lm_blocks(params, cfg)):
         x, a = body(x, block_params, i)
         aux = aux + a
-    return lm_logits(params, cfg, x), aux / max(cfg.n_layers, 1)
+    if cfg.moe is None or cfg.moe.score_func != "sigmoid":
+        aux = aux / max(cfg.n_layers, 1)
+    return lm_logits(params, cfg, x), aux
 
 
 def prefill_lm(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,

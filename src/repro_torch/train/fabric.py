@@ -98,7 +98,8 @@ class TrainingFabric:
                 # placed before the moments are made, which then follow them
                 params = distribute_tree(self.model.init(gen, self.device),
                                          self._shardings()[0])
-                self.state = TrainState(params, init_adamw(params))
+                self.state = TrainState(params, init_adamw(params),
+                                        self.model.init_buffers(self.device))
         grad_sh = self._shardings()[0]
         train_step = make_train_step(self.model, self.train_cfg, grad_shardings=grad_sh)
         eval_step = make_eval_step(self.model)
@@ -144,7 +145,8 @@ class TrainingFabric:
     def evaluate(self, n_batches: int = 2, **_) -> dict:
         losses = [
             float(self._eval_step(self.state.params,
-                                  self._to_device(self.data.batch_at(10_000 + i)))["loss"])
+                                  self._to_device(self.data.batch_at(10_000 + i)),
+                                  self.state.buffers)["loss"])
             for i in range(n_batches)
         ]
         return {"eval_loss": float(np.mean(losses)), "step": int(self.state.step)}

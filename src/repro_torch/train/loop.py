@@ -11,7 +11,11 @@ batch is split along its first axis and the gradients are summed in f32 and
 divided by the count, as the reference's ``lax.scan`` does.  The optimizer
 updates the state's params, m and v in place
 (:func:`repro_torch.train.optimizer.adamw_update`); a caller that needs the
-state before the step keeps a copy (a checkpoint, or ``clone``).
+state before the step keeps a copy (a checkpoint, or ``clone``).  The
+state's ``buffers`` (:meth:`repro_torch.models.model.Model.init_buffers`:
+DeepSeek-V3's router correction biases) get no gradient and no AdamW: the
+forward reads them, and after AdamW each bias takes its balance rule's step
+from the step's expert counts (:meth:`repro_torch.models.moe.Balance.update_`).
 
 Sharded training: the params (and so m and v) are DTensors placed by
 :func:`repro_torch.parallel.sharding.param_shardings`, and the step is called
@@ -41,6 +45,7 @@ from repro_torch.train import optimizer as opt
 class TrainState(NamedTuple):
     params: dict
     opt: opt.AdamWState
+    buffers: dict = {}  # no leaf for a model without any, as the reference lays it out
 
     @property
     def step(self) -> torch.Tensor:
@@ -55,7 +60,8 @@ def init_state(model: Model, generator: torch.Generator, device=None) -> TrainSt
     :func:`repro_torch.models.model.param_axes` (``param_axes(model.cfg)``),
     which builds them without making a tensor."""
     params = model.init(generator, device=device)
-    return TrainState(params=params, opt=opt.init_adamw(params))
+    return TrainState(params=params, opt=opt.init_adamw(params),
+                      buffers=model.init_buffers(device))
 
 
 def _split_microbatches(batch: dict, n: int) -> dict:
@@ -93,24 +99,30 @@ def make_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
     right after the backward, the reference's ``with_sharding_constraint``
     on them (a reduce-scatter where the backward left a partial sum)."""
 
-    def grad_fn(params, mb):
+    def grad_fn(params, mb, balance):
         with tracing.span("train.grad"):
             mb = {k: sharding.distribute_input(v, "batch", *(None,) * (v.dim() - 1))
                   for k, v in mb.items()}
+            # a model without buffers is called as it always was, (params, batch)
+            args = (mb,) if balance is None else (mb, balance)
             if tcfg.grad_compression == "bf16":
-                loss, grads = grads_in_bf16(model.loss, params, mb)
+                loss, grads = grads_in_bf16(model.loss, params, *args)
             else:
-                loss, grads = L.value_and_grad(model.loss, params, mb)
+                loss, grads = L.value_and_grad(model.loss, params, *args)
+            if balance is not None:
+                balance.end_forward()
             return loss, _place_grads(grads, params, grad_shardings)
 
     def train_step(state: TrainState, batch: dict):
+        balance = model.balance(state.buffers)
         if tcfg.microbatches > 1:
             mbs = _split_microbatches(batch, tcfg.microbatches)
             loss_sum = torch.zeros((), dtype=torch.float32, device=state.step.device)
             grads = L.map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
                                state.params)
             for i in range(tcfg.microbatches):
-                loss, mb_grads = grad_fn(state.params, {k: v[i] for k, v in mbs.items()})
+                loss, mb_grads = grad_fn(state.params, {k: v[i] for k, v in mbs.items()},
+                                         balance)
                 for (_, acc), (_, g) in zip(L.flatten_specs(grads),
                                             L.flatten_specs(mb_grads)):
                     acc.add_(g.float())
@@ -119,27 +131,32 @@ def make_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
             for _, g in L.flatten_specs(grads):
                 g.div_(tcfg.microbatches)
         else:
-            loss, grads = grad_fn(state.params, batch)
+            loss, grads = grad_fn(state.params, batch, balance)
 
         with tracing.span("train.adamw"):
             params, opt_state, metrics = opt.adamw_update(state.params, grads, state.opt, tcfg)
-        return TrainState(params, opt_state), {"loss": sharding.full_tensor(loss).float(),
-                                               **metrics}
+        if balance is not None:
+            balance.update_(model.cfg.moe.bias_update)
+        return TrainState(params, opt_state, state.buffers), {
+            "loss": sharding.full_tensor(loss).float(), **metrics}
 
     return train_step
 
 
 def make_eval_step(model: Model):
-    """``eval_step(params, batch) -> {"loss": f32 scalar}``, run without autograd:
-    under ``torch.inference_mode``, or under ``torch.no_grad`` for DTensor
-    params (some DTensor versions cannot take a view of an ordinary DTensor
-    under inference mode)."""
+    """``eval_step(params, batch, buffers={}) -> {"loss": f32 scalar}``, run
+    without autograd: under ``torch.inference_mode``, or under
+    ``torch.no_grad`` for DTensor params (some DTensor versions cannot take a
+    view of an ordinary DTensor under inference mode).  ``buffers``: the
+    state's, whose router biases pick the experts."""
 
-    def eval_step(params, batch):
+    def eval_step(params, batch, buffers=None):
         sharded = sharding.is_dtensor(next(L.flatten_specs(params))[1])
+        balance = model.balance(buffers or {})
         with torch.no_grad() if sharded else torch.inference_mode():
             batch = {k: sharding.distribute_input(v, "batch", *(None,) * (v.dim() - 1))
                      for k, v in batch.items()}
-            return {"loss": sharding.full_tensor(model.loss(params, batch)).float()}
+            args = (batch,) if balance is None else (batch, balance)
+            return {"loss": sharding.full_tensor(model.loss(params, *args)).float()}
 
     return eval_step

@@ -6,8 +6,9 @@ params' layout); m and v are f32 whatever the params' dtype.  The update runs
 in place on the params and the moments (the reference returns new arrays):
 at internlm2-1.8b a second copy of params, m and v would take 22.7 GB more of
 the card.  Each leaf's arithmetic is the reference's, op for op, through
-temporaries of that leaf's size.  The learning rate is a tensor computed from
-the step tensor on the params' device, so a step needs no host sync.
+temporaries of that leaf's size, m and v updated in place.  The learning
+rate is a tensor computed from the step tensor on the params' device, so a
+step needs no host sync.
 
 The leaves may be DTensors (sharded training): m and v then take their
 params' placements, the gradients must come in those placements too
@@ -91,14 +92,15 @@ def adamw_update(params, grads, state: AdamWState, cfg: TrainConfig):
     with sharding.implicit_replication():  # the scalars meet DTensor leaves
         for (_, p), (_, g), (_, m), (_, v) in zip(*leaves):
             g32 = (g.float() * scale).to(g.dtype).float()
-            m_new = b1 * m + (1 - b1) * g32
-            v_new = b2 * v + (1 - b2) * torch.square(g32)
-            m_hat = m_new / bc1
-            v_hat = v_new / bc2
-            delta = m_hat / (torch.sqrt(v_hat) + cfg.eps)
+            # m and v take their new values in place, through the same products
+            # and sums, and each temporary goes once spent: a leaf holds some
+            # four temporaries of its size at once, not nine (an expert leaf of
+            # moonlight-16b-a3b is 2.4 GB)
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_((1 - b2) * torch.square(g32))
+            del g32
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
             p32 = p.float()
             # decoupled weight decay inside the lr product, as the reference has it
             p.copy_(p32 - lr * (delta + cfg.weight_decay * p32))
-            m.copy_(m_new)
-            v.copy_(v_new)
     return params, AdamWState(step, state.m, state.v), {"grad_norm": grad_norm, "lr": lr}

@@ -131,7 +131,7 @@ def test_input_specs_match_reference(fake_world, kind):
     fake_world(256)
     mesh = make_mesh((16, 16), ("data", "model"), "cpu")
     jmesh = jax_make_mesh((1, 1), ("data", "model"))
-    for arch in configs.ARCH_IDS:
+    for arch in configs.REFERENCE_ARCH_IDS:
         port = specs_mod.input_specs(configs.get(arch, smoke=True), TINY[kind], mesh)
         ref = jax_specs.input_specs(jax_configs.get(arch, smoke=True),
                                     _jax_shape(TINY[kind]), jmesh)
@@ -334,7 +334,7 @@ def test_model_flops_kinds():
 # --- (g) parameter counts -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("arch", configs.REFERENCE_ARCH_IDS)
 def test_param_counts_match_reference(arch):
     """Exact, full configs (counted, never built)."""
     cfg, jcfg = configs.get(arch), jax_configs.get(arch)

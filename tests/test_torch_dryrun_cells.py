@@ -1,7 +1,7 @@
 """Every SMOKE cell of the port's dry-run traces (``repro_torch.launch.dryrun``).
 
 ``run_cell`` ends ``ok`` for train, prefill and decode of every arch of
-``configs.ARCH_IDS`` at SMOKE configs and tiny shapes on a fake (16, 16)
+``configs.REFERENCE_ARCH_IDS`` at SMOKE configs and tiny shapes on a fake (16, 16)
 world, the production mesh's shape (the reference's ``dryrun --all`` cell
 list, cut to SMOKE), and for xLSTM also on (1, 1) and (2, 4).  A cell that
 does not trace is an error record and fails here.  Exact checks: the
@@ -29,7 +29,7 @@ TINY = {"train": ShapeConfig("train_4k", "train", seq_len=32, global_batch=4),
         "prefill": ShapeConfig("prefill_32k", "prefill", seq_len=32, global_batch=2),
         "decode": ShapeConfig("decode_32k", "decode", seq_len=32, global_batch=2)}
 KINDS = tuple(TINY)
-CELLS = ([(arch, kind, (16, 16)) for arch in configs.ARCH_IDS for kind in KINDS]
+CELLS = ([(arch, kind, (16, 16)) for arch in configs.REFERENCE_ARCH_IDS for kind in KINDS]
          + [("xlstm-1.3b", kind, mesh) for mesh in ((1, 1), (2, 4)) for kind in KINDS])
 
 

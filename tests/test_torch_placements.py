@@ -406,7 +406,7 @@ def test_xlstm_flops_match_reference(shape, heads):
 if __name__ == "__main__":
     import time
 
-    for arch in configs.ARCH_IDS:
+    for arch in configs.REFERENCE_ARCH_IDS:
         t0 = time.time()
         _reference_dots(arch)
         t1 = time.time()

@@ -217,8 +217,10 @@ def test_unported_family_raises():
 def test_every_config_builds_forwards_prefills_and_decodes(arch):
     """Model(cfg) for every config of the registry, at SMOKE size on the CPU:
     init, forward, prefill and two decode steps, all finite and of the
-    reference's shapes."""
-    _, tcfg = _cfgs(arch)
+    reference's shapes.  Latent attention (moonlight) has no KV cache yet:
+    its prefill raises."""
+    tcfg = configs.get(arch, smoke=True).replace(compute_dtype="float32",
+                                                 attention_impl="flash")
     model = Model(tcfg)
     params = model.init(torch.Generator("cpu").manual_seed(0), device="cpu")
     batch = {"tokens": torch.from_numpy(_tokens(tcfg, (B, S))).long()}
@@ -228,13 +230,17 @@ def test_every_config_builds_forwards_prefills_and_decodes(arch):
         batch["frames"] = torch.ones((B, 16, tcfg.d_model))
     logits, _ = model.forward(params, batch)
     assert logits.shape == (B, S, tcfg.vocab_size) and bool(torch.isfinite(logits).all())
+    if tcfg.kv_lora_rank:
+        with pytest.raises(NotImplementedError, match="no KV cache"):
+            model.prefill(params, batch, S + 2)
+        return
     logits, cache = model.prefill(params, batch, S + 2)
     for pos in (S, S + 1):
         assert logits.shape == (B, 1, tcfg.vocab_size) and bool(torch.isfinite(logits).all())
         logits, cache = model.decode_step(params, logits.argmax(-1), cache, pos)
 
 
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("arch", configs.REFERENCE_ARCH_IDS)
 def test_count_params_analytic_equals_the_references(arch):
     """The full configs' analytic parameter counts, exactly the reference's
     (xlstm-1.3b 1.756 B and whisper-medium 0.759 B among them)."""
