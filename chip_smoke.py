@@ -17,8 +17,9 @@ Phases, each of which raises on failure (a non-zero exit):
               PyTorch library call that computes the same function (where
               one exists) and the card's bound; training's causal attention
               pair (forward with log-sum-exp, backward) at internlm2-1.8b's
-              training shape and edge cases, dq, dk and dv within one bf16
-              step of the plain backward;
+              training shape, at moonlight's latent attention (q.k 192, v
+              128) and edge cases, dq, dk and dv within one bf16 step of the
+              plain backward;
 4. serve    - full-width, full-depth internlm2-1.8b (random weights from a
               seed, bf16 compute, attention_impl="flash") serves 16 requests
               through BatchAccumulator and ServeEngine; flash_attention must
@@ -367,16 +368,25 @@ def check_attention_kernel() -> dict:
 
 
 # Training's causal self-attention (the xla route's kernels): name, B, S = T,
-# H, K, D, bf16.  Timed at internlm2-1.8b's training shape; the edge cases take
-# ragged lengths, D 64, MHA and MQA.
-TRAIN_ATTN_CASE = ("train", 8, 2048, 16, 8, 128)
+# H, K, the q.k width D, v's DV, bf16.  Timed at internlm2-1.8b's training
+# shape and at moonlight-16b-a3b's latent attention in moonlight-train-2k
+# (16 x 2048); the edge cases take ragged lengths, D 64, MHA and MQA.
+TRAIN_ATTN_CASE = ("train", 8, 2048, 16, 8, 128, 128)
+MLA_TRAIN_ATTN_CASE = ("mla", 16, 2048, 16, 16, 192, 128)
 TRAIN_ATTN_EDGE_CASES = [
-    ("ragged", 2, 100, 4, 2, 128),
-    ("s37_d64", 2, 37, 4, 2, 64),
-    ("s2", 2, 2, 4, 2, 128),
-    ("d64", 2, 256, 8, 2, 64),
-    ("mha", 2, 192, 4, 4, 128),
-    ("mqa", 1, 320, 8, 1, 128),
+    ("ragged", 2, 100, 4, 2, 128, 128),
+    ("s37_d64", 2, 37, 4, 2, 64, 64),
+    ("s2", 2, 2, 4, 2, 128, 128),
+    ("d64", 2, 256, 8, 2, 64, 64),
+    ("mha", 2, 192, 4, 4, 128, 128),
+    ("mqa", 1, 320, 8, 1, 128, 128),
+    # the (192, 128) pair streams 32-row tiles in its backward: S off both
+    # 64 and 32, S a multiple of 32 and not of 64, grouped heads
+    ("mla_ragged", 2, 100, 4, 4, 192, 128),
+    ("mla_s37", 2, 37, 4, 4, 192, 128),
+    ("mla_s2", 2, 2, 4, 4, 192, 128),
+    ("mla_s160", 1, 160, 4, 4, 192, 128),
+    ("mla_gqa", 2, 320, 8, 2, 192, 128),
 ]
 
 
@@ -390,18 +400,19 @@ def bf16_steps(err: float, expected) -> float:
 
 
 def train_attention_bound_ms(case) -> dict:
-    """The least time of the forward (its two products over the causal pairs)
-    and of the backward (five: S again, dP, dV, dQ, dK) at the bf16 peak, or
-    their bytes (inputs read once, outputs written once) at the HBM rate,
+    """The least time of the forward (its two products over the causal pairs:
+    S over D, PV over DV) and of the backward (five: S again, dQ and dK over
+    D, dP and dV over DV) at the bf16 peak, or their bytes at the HBM rate,
     whichever is larger."""
     from repro_torch.kernels.ops import attended_pairs
 
-    _, B, S, H, K, D = case
-    pair_flops = B * H * D * attended_pairs(S, S, True, None)
-    q_bytes, kv_bytes = 2 * B * S * H * D, 2 * B * S * K * D
+    _, B, S, H, K, D, DV = case
+    pairs = B * H * attended_pairs(S, S, True, None)
+    # bf16 bytes of a D-wide and a DV-wide tensor: q and out, k and v
+    q_pair, kv_pair = 2 * B * S * H * (D + DV), 2 * B * S * K * (D + DV)
     out = {}
-    for name, flops, nbytes in (("fwd", 4 * pair_flops, 2 * q_bytes + 2 * kv_bytes),
-                                ("bwd", 10 * pair_flops, 6 * q_bytes + 4 * kv_bytes)):
+    for name, flops, nbytes in (("fwd", 2 * (D + DV) * pairs, q_pair + kv_pair),
+                                ("bwd", 2 * (3 * D + 2 * DV) * pairs, 3 * q_pair + 2 * kv_pair)):
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
         out[f"{name}_bound_ms"] = 1e3 * max(t_bytes, t_flops)
         out[f"{name}_bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
@@ -410,13 +421,14 @@ def train_attention_bound_ms(case) -> dict:
 
 def check_train_attention_kernel() -> dict:
     """The training pair (flash_attention_fwd_lse, flash_attention_bwd)
-    against its plain versions at the training shape and the edge cases: the
+    against its plain versions at the training shapes and the edge cases: the
     output within TOL, the log-sum-exp within 1e-3, and dQ, dK and dV within
     one bf16 step at their largest magnitude of the plain backward fed the
-    kernel's own output and log-sum-exp.  At the training shape it times the
-    forward and the backward, the plain versions and SDPA (forward, and its
-    backward as forward-and-backward less forward; the port never calls it).
-    Returns the timed case's record."""
+    kernel's own output and log-sum-exp.  At internlm2's shape (D 128) and at
+    moonlight's latent attention (q.k 192, v 128) it times the forward and the
+    backward, the plain versions and SDPA (forward, and its backward as
+    forward-and-backward less forward; the port never calls it).  Returns
+    internlm2's timed record, with moonlight's under "mla"."""
     import torch
     import torch.nn.functional as F
 
@@ -424,12 +436,13 @@ def check_train_attention_kernel() -> dict:
     from repro_torch.kernels import ref
 
     gen = torch.Generator("cuda").manual_seed(0)
-    record = {}
-    for case in [TRAIN_ATTN_CASE] + TRAIN_ATTN_EDGE_CASES:
-        name, B, S, H, K, D = case
-        q, k, v = (torch.randn(B, S, n, D, generator=gen, device="cuda").to(torch.bfloat16)
-                   for n in (H, K, K))
-        dout = torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    records = {}
+    for case in [TRAIN_ATTN_CASE, MLA_TRAIN_ATTN_CASE] + TRAIN_ATTN_EDGE_CASES:
+        name, B, S, H, K, D, DV = case
+        q, k = (torch.randn(B, S, n, D, generator=gen, device="cuda").to(torch.bfloat16)
+                for n in (H, K))
+        v = torch.randn(B, S, K, DV, generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn(B, S, H, DV, generator=gen, device="cuda").to(torch.bfloat16)
         out, lse = fa.flash_attention_fwd_lse(q, k, v)
         grads = fa.flash_attention_bwd(dout, q, k, v, out, lse)
         torch.cuda.synchronize()
@@ -448,11 +461,11 @@ def check_train_attention_kernel() -> dict:
             rec[f"{gname}_bf16_steps"] = steps = bf16_steps(err, exp)
             check(steps <= 1.0, f"flash_attention_bwd {name}: {gname} is {steps:.2f} bf16 "
                                 f"steps from the plain backward (max|err| {err:.3e})")
-        print(f"  train attention {name:8s} B{B} S{S} H{H} K{K} D{D}: out max|err| "
+        print(f"  train attention {name:10s} B{B} S{S} H{H} K{K} D{D} DV{DV}: out max|err| "
               f"{rec['out_max_abs_err']:.3e}, lse {rec['lse_max_abs_err']:.3e}; dq, dk, dv "
               f"{rec['dq_bf16_steps']:.2f}, {rec['dk_bf16_steps']:.2f}, "
               f"{rec['dv_bf16_steps']:.2f} bf16 steps from the plain backward")
-        if case == TRAIN_ATTN_CASE:
+        if case in (TRAIN_ATTN_CASE, MLA_TRAIN_ATTN_CASE):
             rec["fwd_ms"] = time_ms(lambda: fa.flash_attention_fwd_lse(q, k, v), iters=10)
             rec["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd(dout, q, k, v, out, lse),
                                     iters=10)
@@ -480,11 +493,11 @@ def check_train_attention_kernel() -> dict:
                   f"{rec['bwd_bound_by']}: {100 * rec['bwd_bound_ms'] / rec['bwd_ms']:.1f} %); "
                   f"plain {rec['plain_fwd_ms']:.3f} / {rec['plain_bwd_ms']:.3f} ms; SDPA "
                   f"{rec['library_fwd_ms']:.4f} / {rec['library_bwd_ms']:.4f} ms")
-            record = rec
+            records[name] = rec
             del qt, kt, vt, dot
         del q, k, v, dout, out, lse, grads, want, want_out, want_lse
         torch.cuda.empty_cache()
-    return record
+    return {**records[TRAIN_ATTN_CASE[0]], "mla": records[MLA_TRAIN_ATTN_CASE[0]]}
 
 
 def ptxas_usage(report: str) -> dict[str, dict]:
@@ -513,15 +526,18 @@ NO_SPILL_ENTRIES = ("flash_attention_bf16_kernel", "flash_attention_bwd_dkdv_ker
 
 def kernel_name(entry: str) -> str:
     """A mangled entry's kernel name (the <length><name> that ends in
-    ``_kernel``) and its template argument, for printing."""
+    ``_kernel``) and its template arguments, for printing."""
     for found in re.finditer(r"\d+", entry):
         digits, end = found.group(), found.end()
         for i in range(len(digits)):
             n = int(digits[i:])
             name = entry[end:end + n]
             if len(name) == n and name.endswith("_kernel"):
-                arg = re.match(r"I(?:Li)?(\d+|f|13__nv_bfloat16)E", entry[end + n:])
-                return f"{name}<{arg[1].replace('13__nv_', '')}>" if arg else name
+                args = re.match(r"I((?:L[ib]\d+E|f|13__nv_bfloat16)+)E", entry[end + n:])
+                if not args:
+                    return name
+                found_args = re.findall(r"L[ib](\d+)E|(f)|13__nv_(bfloat16)", args[1])
+                return f"{name}<{', '.join(''.join(a) for a in found_args)}>"
     return entry
 
 
@@ -2408,8 +2424,8 @@ def gradient_guard() -> None:
 NO_GEMM = [
     ("  for (int kk = 0; kk < D / 16; ++kk)\n    ptx::wgmma_m64n64k16<0>(",
      "  for (int kk = 0; kk < 0; ++kk)\n    ptx::wgmma_m64n64k16<0>("),
-    ("for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(",
-     "for (int kk = 0; kk < 0; ++kk) pv_wgmma<D>("),
+    ("for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<DV>(",
+     "for (int kk = 0; kk < 0; ++kk) pv_wgmma<DV>("),
 ]
 # the loop runs no time, but the compiler still sees its code
 NO_SOFTMAX = [

@@ -73,6 +73,32 @@
 // five (S again, dP, dV, dQ, dK) 3.44e11 FLOP, 0.347 ms (403 MB, 0.120 ms).
 // Both are bound by operations.  The backward issues seven, dQ and dK twice
 // (dS as hi + lo, below): 4.81e11 FLOP on the tensor cores.
+//
+// The pair is templated on the q.k width DQK and v's DV, instantiated at
+// (64, 64), (128, 128) and (192, 128).  The last is latent attention's
+// (models/attention.py apply_mla: 128 nope + 64 rope for q.k, 128 for v), a
+// shape no TPU kernel has (the JAX package has no MLA); FlashAttention-3 added
+// the same head-dim pair for DeepSeek-V3.  The scale is 1/sqrt(DQK).  Bound at
+// moonlight's training shape (B 16, S = T = 2048, H = K 16): 2.10e6 causal
+// pairs a head; the forward's 2 (DQK + DV) FLOP a pair and head, 3.44e11 FLOP,
+// 0.348 ms at 989 TFLOP/s (its 671 MB 0.200 ms); the backward's 2 (3 DQK + 2
+// DV), 8.94e11 FLOP, 0.904 ms (1.21 GB, 0.361 ms): bound by operations.  What
+// the 192-wide tiles change is the budgets.  The forward keeps 64-row tiles:
+// two stages of K (24 KB) and V (16 KB) are 81 KB, two blocks an SM, and Q's
+// 12 A fragments take 48 registers.  The backward's dK/dV block holds dK (64
+// x 192) and dV (64 x 128) in f32, 160 registers a thread, and with 64-row
+// streamed Q and dO tiles its shared memory (121 KB) would leave one block an
+// SM.  So at DQK 192 both backward kernels stream 32-row tiles (NB below): the
+// S and dP fragments halve (16 registers each; ptxas gives dK/dV 218
+// registers, no spill) and each block takes 81 KB, two blocks an SM, as at D
+// 128.  And L2: with K = H = 16 at B 16, the blocks of one q-tile index over
+// every head (the default grid order, heads on the fast axis) stream 335 MB of
+// K and V, far past the 50 MB L2, so each q tile read them from HBM again: the
+// forward took 1.92 ms.  At (192, 128) the tiles run on the grid's fast axis
+// (tiles_fast), the blocks in flight are all the tiles of a few heads, and
+// their K and V (or Q and dO) stay in L2: forward 0.79 ms, backward 3.19 ms
+// (from 4.17), H100 80GB HBM3 at 700 W.  (64, 64) and (128, 128) keep the
+// default order.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,24 +119,22 @@ constexpr int TC_BN = 64;        // kv rows a tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// A staged tile: 64 rows of D bf16, cut into slabs of RB-byte rows, RB the
-// largest of 128, 64 and 32 that divides a row's 2 D bytes (D 16: 32; D 32,
-// 96: 64; D 48, 80, 112: 32; D 64, 128: 128), so that every slab is one whole
-// swizzle atom wide.  The slabs' 16-byte chunks are swizzled as TMA writes
-// them with the map's swizzle mode and as wgmma reads them.
-template <int D>
+// A staged tile: ROWS rows (64, or the backward's 32-row streamed tiles) of D
+// bf16, cut into slabs of RB-byte rows, RB the largest of 128, 64 and 32 that
+// divides a row's 2 D bytes (D 16: 32; D 32, 96: 64; D 48, 80, 112: 32; D 64,
+// 128, 192: 128), so that every slab is one whole swizzle atom wide.  The
+// slabs' 16-byte chunks are swizzled as TMA writes them with the map's swizzle
+// mode and as wgmma reads them.
+template <int D, int ROWS = TC_BN>
 struct TcTile {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dims 16..128, multiples of 16");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 192, "head dims 16..192, multiples of 16");
   static constexpr int RB = 2 * D % 128 == 0 ? 128 : 2 * D % 64 == 0 ? 64 : 32;
   static constexpr int SLABS = 2 * D / RB;
   static constexpr int SWZ = RB == 128 ? 3 : RB == 64 ? 2 : 1;  // row bits XORed into the chunk
   static constexpr int SWIZZLE = 4 - SWZ;  // wgmma_desc's mode: 1 for 128 B rows, 3 for 32 B
-  static constexpr int SLAB = TC_BN * RB;                           // bytes of a slab
-  static constexpr int BYTES = TC_BN * D * 2;
+  static constexpr int SLAB = ROWS * RB;                            // bytes of a slab
+  static constexpr int BYTES = ROWS * D * 2;
   static constexpr int PITCH = D + 8;  // bf16 elements a row of the staged O tile
-  // two stages of K and V (Q and O pass through them); 1 KB to align the
-  // tiles to the swizzle atoms
-  static constexpr size_t SMEM_BYTES = 4 * BYTES + 1024;
 };
 
 // Byte offset of (row r, column c) in a staged tile, c a multiple of 8: the
@@ -123,24 +147,42 @@ __device__ __forceinline__ int tile_off(int r, int c) {
   return lin ^ (((lin >> 7) & ((1 << TT::SWZ) - 1)) << 4);
 }
 
-// Copies rows `row` .. `row` + 63 of head `head` of batch `b` as a tile at
-// `dst`, one TMA box a slab; rows past the tensor's end arrive as zeros.
-template <int D>
+// Copies rows `row` .. `row` + ROWS - 1 of head `head` of batch `b` as a tile
+// at `dst`, one TMA box a slab; rows past the tensor's end arrive as zeros.
+template <int D, int ROWS = TC_BN>
 __device__ __forceinline__ void tma_tile(char* dst, const CUtensorMap* map, int head, int row,
                                          int b, uint64_t* bar) {
-  using TT = TcTile<D>;
+  using TT = TcTile<D, ROWS>;
 #pragma unroll
   for (int slab = 0; slab < TT::SLABS; ++slab)
     ptx::tma_load_4d(dst + slab * TT::SLAB, map, slab * TT::RB / 2, head, row, b, bar);
 }
 
-// The descriptor of columns 16 kk .. 16 kk + 15 of a staged tile's 64 rows,
-// read k-major (each row one row of the product's A, or one column of its B).
-template <int D>
+// The descriptor of columns 16 kk .. 16 kk + 15 of a staged tile's rows, read
+// k-major (each row one row of the product's A, or one column of its B).
+template <int D, int ROWS = TC_BN>
 __device__ __forceinline__ uint64_t kmajor_desc(const char* tile, int kk) {
-  using TT = TcTile<D>;
+  using TT = TcTile<D, ROWS>;
   return ptx::wgmma_desc(tile + (32 * kk / TT::RB) * TT::SLAB + 32 * kk % TT::RB, 16, 8 * TT::RB,
                          TT::SWIZZLE);
+}
+
+// A block's place on the grid: its row of heads (b H + h, or b K + kh) and
+// its tile.  By default the heads run on the grid's fast axis and the tiles on
+// its slow one; with tiles_fast the other way round, so that the blocks in
+// flight at once are all the tiles of a few heads, and the tiles they stream
+// (K and V, or Q and dO) stay in L2 between them.
+struct GridPos {
+  int heads, tile, tiles;
+};
+
+__device__ __forceinline__ GridPos grid_pos(int tiles_fast) {
+  return tiles_fast ? GridPos{(int)blockIdx.y, (int)blockIdx.x, (int)gridDim.x}
+                    : GridPos{(int)blockIdx.x, (int)blockIdx.y, (int)gridDim.y};
+}
+
+dim3 grid_of(int heads, int tiles, int tiles_fast) {
+  return tiles_fast ? dim3(tiles, heads) : dim3(heads, tiles);
 }
 
 // S (64 x 64) = Q K^T over D, K read k-major from the staged tile.
@@ -152,13 +194,13 @@ __device__ __forceinline__ void qk_wgmma(float (&s)[32], const uint32_t (&qf)[D 
     ptx::wgmma_m64n64k16<0>(s, qf[kk], kmajor_desc<D>(k_tile, kk), kk > 0);
 }
 
-// The warpgroup's 64 x 64 f32 fragment, rounded to bf16, as the A fragments
-// of a product over its 64 columns, 16 a step (ptx.cuh: two D column tiles
-// side by side are one A fragment).
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[TC_BN / 16][4],
-                                           const float (&s)[TC_BN / 8][4]) {
+// The warpgroup's 64 x 16 KT f32 fragment, rounded to bf16, as the A
+// fragments of a product over its 16 KT columns, 16 a step (ptx.cuh: two D
+// column tiles side by side are one A fragment).
+template <int KT>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[KT][4], const float (&s)[2 * KT][4]) {
 #pragma unroll
-  for (int kk = 0; kk < TC_BN / 16; ++kk) {
+  for (int kk = 0; kk < KT; ++kk) {
     a[kk][0] = ptx::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
     a[kk][1] = ptx::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
     a[kk][2] = ptx::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
@@ -167,18 +209,22 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[TC_BN / 16][4],
 }
 
 // O (64 x D) += P (64 x 16) V (16 x D), V read n-major (transposed) from the
-// staged tile at its row `k0`.  D 128 runs as one m64n128k16 across its two
-// 128-byte slabs.  At D 64 a single transposed m64n64k16 beside the k-major
-// m64n64k16 of S gave wrong sums on the card (two kv tiles or more), so its
-// one slab runs as two n32 halves.  Every other D runs one product a slab,
-// m64n{RB/2}k16 (n32 at RB 64, n16 at RB 32), its descriptor at the slab's
-// base, so that no transposed product spans more than one swizzle atom.
-template <int D>
+// staged tile of ROWS rows at its row `k0`.  D 128 runs as one m64n128k16
+// across its two 128-byte slabs, D 192 as one m64n192k16 across its three.
+// At D 64 a single transposed m64n64k16 beside the k-major m64n64k16 of S gave
+// wrong sums on the card (two kv tiles or more), so its one slab runs as two
+// n32 halves.  Every other D runs one product a slab, m64n{RB/2}k16 (n32 at
+// RB 64, n16 at RB 32), its descriptor at the slab's base, so that no
+// transposed product spans more than one swizzle atom.
+template <int D, int ROWS = TC_BN>
 __device__ __forceinline__ void pv_wgmma(float (&acc)[D / 2], const uint32_t (&pf)[4],
                                          const char* v_tile, int k0) {
-  using TT = TcTile<D>;
+  using TT = TcTile<D, ROWS>;
   const char* v_rows = v_tile + k0 * TT::RB;
-  if constexpr (D == 128) {
+  if constexpr (D == 192) {
+    ptx::wgmma_m64n192k16<1>(acc, pf, ptx::wgmma_desc(v_rows, TT::SLAB, 8 * TT::RB, TT::SWIZZLE),
+                             1);
+  } else if constexpr (D == 128) {
     ptx::wgmma_m64n128k16<1>(acc, pf, ptx::wgmma_desc(v_rows, TT::SLAB, 8 * TT::RB, TT::SWIZZLE),
                              1);
   } else if constexpr (D == 64) {
@@ -186,6 +232,7 @@ __device__ __forceinline__ void pv_wgmma(float (&acc)[D / 2], const uint32_t (&p
     ptx::wgmma_m64n32k16<1>(*reinterpret_cast<float(*)[16]>(&acc[0]), pf, desc, 1);
     ptx::wgmma_m64n32k16<1>(*reinterpret_cast<float(*)[16]>(&acc[16]), pf, desc + (64 >> 4), 1);
   } else {
+    static_assert(TT::RB < 128, "a 128-byte slab's D has its own product above");
     constexpr int PART = TT::RB / 4;  // accumulator floats a slab: RB / 2 columns
 #pragma unroll
     for (int slab = 0; slab < TT::SLABS; ++slab) {
@@ -201,28 +248,33 @@ __device__ __forceinline__ void pv_wgmma(float (&acc)[D / 2], const uint32_t (&p
 }
 
 // 2 blocks (8 warps) an SM: at 3, D 128 would be held to 168 registers and spill.
+// D is the q.k width and DV v's (serving's instantiations have DV = D).
 // LSE: also store each row's log-sum-exp of its scaled scores (natural log,
 // f32, [B, H, S]) for the backward; serving's instantiation has it off.
-template <int D, bool LSE>
+template <int D, int DV, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
                             int T_len, int H, int K, int causal, int window, float softcap,
-                            float sm_scale, const __grid_constant__ CUtensorMap q_map,
+                            float sm_scale, int tiles_fast,
+                            const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map) {
   using TT = TcTile<D>;
+  using TV = TcTile<DV>;
   constexpr int KD = D / 16;     // 16-deep steps over D
   constexpr int NT = TC_BN / 8;  // 8-wide score column tiles
-  static_assert(TC_BM * TT::PITCH * 2 <= 2 * TT::BYTES, "the O tile is staged in one stage");
+  constexpr int STAGE = TT::BYTES + TV::BYTES;
+  static_assert(TC_BM * TV::PITCH * 2 <= STAGE, "the O tile is staged in one stage");
   __shared__ __align__(8) uint64_t landed[2];  // stage s's tiles have landed
   extern __shared__ __align__(16) unsigned char smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw) + (1024 - ptx::smem_addr(smem_raw) % 1024) % 1024;
-  // stage s: K tile at smem + 2 s BYTES, V tile right after it
+  // stage s: K tile at smem + s STAGE, V tile right after it
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const GridPos pos = grid_pos(tiles_fast);
+  const int b = pos.heads / H, h = pos.heads % H;
   const int kh = h / (H / K);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;  // heavy causal tiles first
+  const int q0 = (pos.tiles - 1 - pos.tile) * TC_BM;  // heavy causal tiles first
 
   // the kv tiles with an unmasked pair for some row of this q tile
   const int q_last = min(q0 + TC_BM, S) - 1;
@@ -241,11 +293,11 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ l
   __syncthreads();
   if (tid == 0) {
     ptx::mbar_expect_tx(&landed[1], TT::BYTES);
-    tma_tile<D>(smem + 2 * TT::BYTES, &q_map, h, q0, b, &landed[1]);
+    tma_tile<D>(smem + STAGE, &q_map, h, q0, b, &landed[1]);
     if (j_lo <= j_hi) {
-      ptx::mbar_expect_tx(&landed[0], 2 * TT::BYTES);
+      ptx::mbar_expect_tx(&landed[0], STAGE);
       tma_tile<D>(smem, &k_map, kh, j_hi * TC_BN, b, &landed[0]);
-      tma_tile<D>(smem + TT::BYTES, &v_map, kh, j_hi * TC_BN, b, &landed[0]);
+      tma_tile<DV>(smem + TT::BYTES, &v_map, kh, j_hi * TC_BN, b, &landed[0]);
     }
   }
   ptx::mbar_wait(&landed[1], 0);  // Q has landed
@@ -255,13 +307,13 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ l
   uint32_t qf[KD][4];
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk)
-    ptx::ldmatrix_x4(qf[kk], smem + 2 * TT::BYTES +
+    ptx::ldmatrix_x4(qf[kk], smem + STAGE +
                                  tile_off<D>(warp * 16 + lane % 16, kk * 16 + (lane / 16) * 8));
 
-  float acc[D / 8][4];  // O: 16 rows x D a warp, 8-wide column tiles
-  float(&acc_flat)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&acc[0][0]);
+  float acc[DV / 8][4];  // O: 16 rows x DV a warp, 8-wide column tiles
+  float(&acc_flat)[DV / 2] = *reinterpret_cast<float(*)[DV / 2]>(&acc[0][0]);
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_flat[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc_flat[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of the warp's 16
   float l[2] = {0.f, 0.f};              // this lane's part of the row sums
 
@@ -278,12 +330,12 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ l
     ptx::mbar_wait(&landed[stage], ((j_hi - j + stage) >> 1) & 1);  // tile j has landed
     __syncthreads();  // nobody reads the other stage (or Q) any more
     if (j > j_lo && tid == 0) {
-      char* nxt = smem + 2 * (stage ^ 1) * TT::BYTES;
-      ptx::mbar_expect_tx(&landed[stage ^ 1], 2 * TT::BYTES);
+      char* nxt = smem + (stage ^ 1) * STAGE;
+      ptx::mbar_expect_tx(&landed[stage ^ 1], STAGE);
       tma_tile<D>(nxt, &k_map, kh, (j - 1) * TC_BN, b, &landed[stage ^ 1]);
-      tma_tile<D>(nxt + TT::BYTES, &v_map, kh, (j - 1) * TC_BN, b, &landed[stage ^ 1]);
+      tma_tile<DV>(nxt + TT::BYTES, &v_map, kh, (j - 1) * TC_BN, b, &landed[stage ^ 1]);
     }
-    const char* ks = smem + 2 * stage * TT::BYTES;
+    const char* ks = smem + stage * STAGE;
     const char* vs = ks + TT::BYTES;
     const int k0 = j * TC_BN;
 
@@ -350,7 +402,7 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ l
         }
       l[i] = alpha * l[i] + sum;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
+      for (int dt = 0; dt < DV / 8; ++dt) {
         acc[dt][2 * i] *= alpha;
         acc[dt][2 * i + 1] *= alpha;
       }
@@ -362,7 +414,7 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ l
     ptx::fence_regs(acc_flat);
     ptx::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(acc_flat, pf[kk], vs, 16 * kk);
+    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<DV>(acc_flat, pf[kk], vs, 16 * kk);
     ptx::wgmma_commit();
     ptx::wgmma_wait<0>();
     ptx::fence_regs(acc_flat);
@@ -372,7 +424,7 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ l
   // stored 16 bytes a thread
   __syncthreads();  // every warp is done with the last stage
   __nv_bfloat16* o_tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  constexpr int PITCH = TT::PITCH;
+  constexpr int PITCH = TV::PITCH;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float sum = l[i];
@@ -388,17 +440,17 @@ flash_attention_bf16_kernel(__nv_bfloat16* __restrict__ o, float* __restrict__ l
             ((m[i] == -INFINITY ? 0.f : m[i] * scale_log2) + log2f(fmaxf(sum, 1e-30f))) * LN2;
     }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
+    for (int dt = 0; dt < DV / 8; ++dt)
       *reinterpret_cast<uint32_t*>(o_tile + r * PITCH + dt * 8 + 2 * (lane % 4)) =
           ptx::pack_bf16(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
   }
   __syncthreads();
-  constexpr int CHUNKS = D / 8;
-  __nv_bfloat16* ob = o + ((long)b * S + q0) * H * D + (long)h * D;
+  constexpr int CHUNKS = DV / 8;
+  __nv_bfloat16* ob = o + ((long)b * S + q0) * H * DV + (long)h * DV;
   for (int c = tid; c < TC_BM * CHUNKS; c += TC_THREADS) {
     const int r = c / CHUNKS, col = 8 * (c % CHUNKS);
     if (q0 + r < S)
-      *reinterpret_cast<uint4*>(ob + (long)r * H * D + col) =
+      *reinterpret_cast<uint4*>(ob + (long)r * H * DV + col) =
           *reinterpret_cast<const uint4*>(o_tile + r * PITCH + col);
   }
 }
@@ -426,18 +478,18 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
 }
 
 // The TMA map of x [B, rows, heads, D] bf16: a box is one slab (RB bytes of
-// d) of one head over 64 rows, swizzled as TcTile<D> lays it out.
-template <int D>
+// d) of one head over ROWS rows, swizzled as TcTile<D, ROWS> lays it out.
+template <int D, int ROWS = TC_BN>
 cudaError_t tile_map(CUtensorMap* map, EncodeTiled encode, const void* x, int B, int rows,
                      int heads) {
-  using TT = TcTile<D>;
+  using TT = TcTile<D, ROWS>;
   const CUtensorMapSwizzle swizzle = TT::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : TT::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)rows * heads * D * 2};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {TT::RB / 2, 1, TC_BN, 1};
+  const cuuint32_t box[4] = {TT::RB / 2, 1, ROWS, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -446,10 +498,10 @@ cudaError_t tile_map(CUtensorMap* map, EncodeTiled encode, const void* x, int B,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, bool LSE = false>
+template <int D, int DV = D, bool LSE = false>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
                         int T_len, int H, int K, int causal, int window, float softcap,
-                        cudaStream_t stream, float* lse = nullptr) {
+                        cudaStream_t stream, float* lse = nullptr, int tiles_fast = 0) {
   // TMA and the 16-byte output stores need 16-byte aligned rows
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
@@ -460,17 +512,19 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   if ((err = encode_tiled(&encode)) != cudaSuccess ||
       (err = tile_map<D>(&q_map, encode, q, B, S, H)) != cudaSuccess ||
       (err = tile_map<D>(&k_map, encode, k, B, T_len, K)) != cudaSuccess ||
-      (err = tile_map<D>(&v_map, encode, v, B, T_len, K)) != cudaSuccess)
+      (err = tile_map<DV>(&v_map, encode, v, B, T_len, K)) != cudaSuccess)
     return err;
-  const size_t smem = TcTile<D>::SMEM_BYTES;
-  err = cudaFuncSetAttribute(flash_attention_bf16_kernel<D, LSE>,
+  // two stages of K and V (Q and O pass through them); 1 KB to align the
+  // tiles to the swizzle atoms
+  const size_t smem = 2 * (TcTile<D>::BYTES + TcTile<DV>::BYTES) + 1024;
+  err = cudaFuncSetAttribute(flash_attention_bf16_kernel<D, DV, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float sm_scale = (float)(1.0 / sqrt((double)D));
-  const dim3 grid(B * H, (S + TC_BM - 1) / TC_BM);
-  flash_attention_bf16_kernel<D, LSE><<<grid, TC_THREADS, smem, stream>>>(
+  const dim3 grid = grid_of(B * H, (S + TC_BM - 1) / TC_BM, tiles_fast);
+  flash_attention_bf16_kernel<D, DV, LSE><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<__nv_bfloat16*>(o), lse, S, T_len, H, K, causal, window, softcap, sm_scale,
-      q_map, k_map, v_map);
+      tiles_fast, q_map, k_map, v_map);
   return cudaGetLastError();
 }
 
@@ -478,32 +532,41 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 //
 // The gradient of causal self-attention (S = T, positions from 0, no window
 // or softcap) from the forward's per-row log-sum-exp L, FlashAttention-2's
-// way: P = exp(Q K^T / sqrt(D) - L) is recomputed tile by tile, never stored.
-// With Delta = rowsum(dO o O):
+// way: P = exp(Q K^T / sqrt(DQK) - L) is recomputed tile by tile, never
+// stored.  With Delta = rowsum(dO o O):
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Delta),
-//   dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D),
+//   dQ = dS K / sqrt(DQK),  dK = dS^T Q / sqrt(DQK),
 // GQA's G = H / K query heads of a kv head summed into its dK and dV.
 // Three launches: Delta (one pass over O and dO); dK/dV, a block per (batch,
-// kv head, 64-row kv tile) walking the q tiles at or below the diagonal for
-// each of the G heads, dK and dV in f32 registers; dQ, a block per (batch, q
-// head, 64-row q tile) walking the kv tiles at or left of the diagonal, S and
-// dP recomputed.  No atomics: every gradient is summed in one block, in the
-// same order on every run.  Products are wgmma bf16 with f32 accumulators
-// (S^T = K Q^T, dP^T = V dO^T, S and dP with both operands in shared memory;
-// dV, dK, dQ with P or dS from registers).  P is rounded to bf16 as the
-// operand of dV, as the forward rounds it for PV.  dP and dS are formed in
-// f32, and dS enters dQ and dK as hi + lo, both bf16 (two products each):
-// about 16 of f32's 24 mantissa bits, where the reference's dS K and dS^T Q
-// are f32 products (its q and k upcast).  Tiles arrive by TMA as in the
-// forward, the dK/dV block's Q and dO tiles and the dQ block's K and V tiles
-// in two stages, the next in flight while one is multiplied.
+// kv head, 64-row kv tile) walking the NB-row q tiles at or below the
+// diagonal for each of the G heads, dK and dV in f32 registers; dQ, a block
+// per (batch, q head, 64-row q tile) walking the NB-row kv tiles at or left
+// of the diagonal, S and dP recomputed.  NB is 64, or 32 at DQK 192 (the
+// budgets at the top of the file).  No atomics: every gradient is summed in
+// one block, in the same order on every run.  Products are wgmma bf16 with
+// f32 accumulators (S^T = K Q^T, dP^T = V dO^T, S and dP with both operands
+// in shared memory; dV, dK, dQ with P or dS from registers).  P is rounded to
+// bf16 as the operand of dV, as the forward rounds it for PV.  dP and dS are
+// formed in f32, and dS enters dQ and dK as hi + lo, both bf16 (two products
+// each): about 16 of f32's 24 mantissa bits, where the reference's dS K and
+// dS^T Q are f32 products (its q and k upcast).  Tiles arrive by TMA as in
+// the forward, the dK/dV block's Q and dO tiles and the dQ block's K and V
+// tiles in two stages, the next in flight while one is multiplied.
 
-// C (64 x 64) = A B^T over D, A and B 64-row staged tiles read k-major.
-template <int D>
-__device__ __forceinline__ void abt_wgmma(float (&c)[32], const char* a_tile, const char* b_tile) {
+// C (64 x NB) = A B^T over D, A a 64-row and B an NB-row staged tile, both
+// read k-major.
+template <int D, int NB>
+__device__ __forceinline__ void abt_wgmma(float (&c)[NB / 2], const char* a_tile,
+                                          const char* b_tile) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ptx::wgmma_ss_m64n64k16<0>(c, kmajor_desc<D>(a_tile, kk), kmajor_desc<D>(b_tile, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (NB == 64)
+      ptx::wgmma_ss_m64n64k16<0>(c, kmajor_desc<D>(a_tile, kk), kmajor_desc<D, NB>(b_tile, kk),
+                                 kk > 0);
+    else
+      ptx::wgmma_ss_m64n32k16<0>(c, kmajor_desc<D>(a_tile, kk), kmajor_desc<D, NB>(b_tile, kk),
+                                 kk > 0);
+  }
 }
 
 // Rows r0 .. r0 + 63 (those below `rows`) of head `head` of x [B, rows,
@@ -536,15 +599,15 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* x, const float (&acc)[
   }
 }
 
-// The warpgroup's 64 x 64 f32 fragment as two bf16 A fragments, hi its
+// The warpgroup's 64 x 16 KT f32 fragment as two bf16 A fragments, hi its
 // rounding and lo the rounding of what hi dropped (exact in f32): hi + lo
 // keeps about 16 mantissa bits.  `s` is left holding the remainders.
-__device__ __forceinline__ void to_a_frags_split(uint32_t (&hi)[TC_BN / 16][4],
-                                                 uint32_t (&lo)[TC_BN / 16][4],
-                                                 float (&s)[TC_BN / 8][4]) {
+template <int KT>
+__device__ __forceinline__ void to_a_frags_split(uint32_t (&hi)[KT][4], uint32_t (&lo)[KT][4],
+                                                 float (&s)[2 * KT][4]) {
   to_a_frags(hi, s);
 #pragma unroll
-  for (int kk = 0; kk < TC_BN / 16; ++kk)
+  for (int kk = 0; kk < KT; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 h = ptx::unpack_bf16(hi[kk][i]);  // a[kk][i] packs s[2 kk + i / 2][2 (i % 2) ..]
@@ -586,49 +649,55 @@ __global__ void flash_attention_bwd_delta_kernel(const __nv_bfloat16* __restrict
 }
 
 // dK and dV of one 64-row kv tile of one kv head.  Shared memory: the K and V
-// tiles, then two stages of a Q and a dO tile; each stage's 64 L and 64 Delta
-// arrive by cp.async beside its TMA copies.
-template <int D>
+// tiles, then two stages of an NB-row Q and dO tile; each stage's NB L and NB
+// Delta arrive by cp.async beside its TMA copies.
+template <int DQK, int DV, int NB>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_attention_bwd_dkdv_kernel(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
-                                int S, int H, int K, float sm_scale,
+                                int S, int H, int K, float sm_scale, int tiles_fast,
                                 const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap do_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map) {
-  using TT = TcTile<D>;
-  constexpr int NT = TC_BN / 8;
+  using TQ = TcTile<DQK, NB>;  // a streamed Q tile
+  using TO = TcTile<DV, NB>;   // a streamed dO tile
+  constexpr int NT = NB / 8, STAGE = TQ::BYTES + TO::BYTES;
   __shared__ __align__(8) uint64_t landed[3];  // K and V; stage 0; stage 1
-  __shared__ __align__(16) float rowstat[2][2][TC_BM];  // stage s: L, Delta of its q rows
+  __shared__ __align__(16) float rowstat[2][2][NB];  // stage s: L, Delta of its q rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw) + (1024 - ptx::smem_addr(smem_raw) % 1024) % 1024;
   const char* k_tile = smem;
-  const char* v_tile = smem + TT::BYTES;
+  const char* v_tile = smem + TcTile<DQK>::BYTES;
+  char* stages = smem + TcTile<DQK>::BYTES + TcTile<DV>::BYTES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x / K, kh = blockIdx.x % K, G = H / K;
-  const int j = blockIdx.y;  // the kv tile: the heavy low tiles start first
+  const GridPos pos = grid_pos(tiles_fast);
+  const int b = pos.heads / K, kh = pos.heads % K, G = H / K;
+  const int j = pos.tile;  // the kv tile: the heavy low tiles start first
   const int kv0 = j * TC_BN;
-  const int per_head = (S + TC_BM - 1) / TC_BM - j;  // q tiles j .. the last
-  const int n_it = G * per_head;                     // (head, q tile) pairs
+  const int first = kv0 / NB;                           // the q tile that holds row kv0
+  const int per_head = (S + NB - 1) / NB - first;       // q tiles first .. the last
+  const int n_it = G * per_head;                        // (head, q tile) pairs
   const float scale_log2 = sm_scale * LOG2E;
 
-  // iteration it: query head kh G + it / per_head, q tile j + it % per_head
+  // iteration it: query head kh G + it / per_head, q tile first + it % per_head
   const CUtensorMap* qm = &q_map;
   const CUtensorMap* dom = &do_map;
   auto head_of = [&](int it) { return kh * G + it / per_head; };
-  auto q0_of = [&](int it) { return (j + it % per_head) * TC_BM; };
+  auto q0_of = [&](int it) { return (first + it % per_head) * NB; };
   auto issue = [&](int it, int st) {  // thread 0: the Q and dO tiles into stage st
-    char* dst = smem + (2 + 2 * st) * TT::BYTES;
-    ptx::mbar_expect_tx(&landed[1 + st], 2 * TT::BYTES);
-    tma_tile<D>(dst, qm, head_of(it), q0_of(it), b, &landed[1 + st]);
-    tma_tile<D>(dst + TT::BYTES, dom, head_of(it), q0_of(it), b, &landed[1 + st]);
+    char* dst = stages + st * STAGE;
+    ptx::mbar_expect_tx(&landed[1 + st], STAGE);
+    tma_tile<DQK, NB>(dst, qm, head_of(it), q0_of(it), b, &landed[1 + st]);
+    tma_tile<DV, NB>(dst + TQ::BYTES, dom, head_of(it), q0_of(it), b, &landed[1 + st]);
   };
-  auto stats = [&](int it, int st) {  // every thread: one L (tid < 64) or one Delta
-    const int r = tid % TC_BM, q = q0_of(it) + r;
-    const float* src = (tid < TC_BM ? lse : delta) + ((long)b * H + head_of(it)) * S;
-    ptx::cp_async_4(&rowstat[st][tid / TC_BM][r], q < S ? src + q : src, q < S ? 4 : 0);
+  auto stats = [&](int it, int st) {  // threads below 2 NB: one L (tid < NB) or one Delta
+    if (tid < 2 * NB) {
+      const int r = tid % NB, q = q0_of(it) + r;
+      const float* src = (tid < NB ? lse : delta) + ((long)b * H + head_of(it)) * S;
+      ptx::cp_async_4(&rowstat[st][tid / NB][r], q < S ? src + q : src, q < S ? 4 : 0);
+    }
     ptx::cp_async_commit();
   };
 
@@ -638,18 +707,20 @@ flash_attention_bwd_dkdv_kernel(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* _
   }
   __syncthreads();
   if (tid == 0) {
-    ptx::mbar_expect_tx(&landed[0], 2 * TT::BYTES);
-    tma_tile<D>(smem, &k_map, kh, kv0, b, &landed[0]);
-    tma_tile<D>(smem + TT::BYTES, &v_map, kh, kv0, b, &landed[0]);
+    ptx::mbar_expect_tx(&landed[0], TcTile<DQK>::BYTES + TcTile<DV>::BYTES);
+    tma_tile<DQK>(smem, &k_map, kh, kv0, b, &landed[0]);
+    tma_tile<DV>(smem + TcTile<DQK>::BYTES, &v_map, kh, kv0, b, &landed[0]);
     issue(0, 0);
   }
   stats(0, 0);
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  float(&dk_flat)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&dk_acc[0][0]);
-  float(&dv_flat)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&dv_acc[0][0]);
+  float dk_acc[DQK / 8][4], dv_acc[DV / 8][4];
+  float(&dk_flat)[DQK / 2] = *reinterpret_cast<float(*)[DQK / 2]>(&dk_acc[0][0]);
+  float(&dv_flat)[DV / 2] = *reinterpret_cast<float(*)[DV / 2]>(&dv_acc[0][0]);
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_flat[i] = dv_flat[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) dk_flat[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv_flat[i] = 0.f;
   const int c0 = 2 * (lane % 4);           // this lane's first q column of a tile
   const int r0 = warp * 16 + lane / 4;     // this lane's kv rows: r0, r0 + 8
   ptx::mbar_wait(&landed[0], 0);
@@ -663,27 +734,30 @@ flash_attention_bwd_dkdv_kernel(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* _
       if (tid == 0) issue(it + 1, st ^ 1);
       stats(it + 1, st ^ 1);
     }
-    const char* q_tile = smem + (2 + 2 * st) * TT::BYTES;
-    const char* do_tile = q_tile + TT::BYTES;
+    const char* q_tile = stages + st * STAGE;
+    const char* do_tile = q_tile + TQ::BYTES;
     const float* l_row = rowstat[st][0];
     const float* d_row = rowstat[st][1];
-    const bool diag = q0_of(it) == kv0;
+    // the q tile's first row past the kv tile's: a kv row r past q column c
+    // (r > off + c) is masked, which only a tile with off < 63 has
+    const int off = q0_of(it) - kv0;
+    const bool diag = off < TC_BN - 1;
 
-    // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x 64 q columns
+    // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x NB q columns
     float s[NT][4], dp[NT][4];
     float(&s_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&s[0][0]);
     float(&dp_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&dp[0][0]);
     ptx::wgmma_fence();
-    abt_wgmma<D>(s_flat, k_tile, q_tile);
+    abt_wgmma<DQK, NB>(s_flat, k_tile, q_tile);
     ptx::wgmma_commit();
-    abt_wgmma<D>(dp_flat, v_tile, do_tile);
+    abt_wgmma<DV, NB>(dp_flat, v_tile, do_tile);
     ptx::wgmma_commit();
     ptx::wgmma_wait<1>();
     ptx::fence_regs(s_flat);
 
-    // P^T = 2^(S^T scale log2(e) - L log2(e)); on the diagonal tile a kv row
-    // past the q column is masked (q rows past S read Q, dO, L and Delta as
-    // zeros, so their dS and their dV terms are 0)
+    // P^T = 2^(S^T scale log2(e) - L log2(e)), masked past the diagonal (q
+    // rows past S read Q, dO, L and Delta as zeros, so their dS and their dV
+    // terms are 0)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const float2 l = *reinterpret_cast<const float2*>(l_row + nt * 8 + c0);
@@ -691,10 +765,10 @@ flash_attention_bwd_dkdv_kernel(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* _
       for (int e = 0; e < 4; ++e) {
         const float p =
             ptx::exp2_approx(fmaf(s[nt][e], scale_log2, -(e & 1 ? l.y : l.x) * LOG2E));
-        s[nt][e] = diag && r0 + 8 * (e >> 1) > nt * 8 + c0 + (e & 1) ? 0.f : p;
+        s[nt][e] = diag && r0 + 8 * (e >> 1) > off + nt * 8 + c0 + (e & 1) ? 0.f : p;
       }
     }
-    uint32_t pf[TC_BN / 16][4];
+    uint32_t pf[NB / 16][4];
     to_a_frags(pf, s);
 
     ptx::wgmma_wait<0>();
@@ -705,7 +779,7 @@ flash_attention_bwd_dkdv_kernel(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* _
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - (e & 1 ? d.y : d.x));
     }
-    uint32_t ds_hi[TC_BN / 16][4], ds_lo[TC_BN / 16][4];
+    uint32_t ds_hi[NB / 16][4], ds_lo[NB / 16][4];
     to_a_frags_split(ds_hi, ds_lo, dp);
 
     // dV += P^T dO, dK += dS^T Q (hi, then lo): dO and Q read n-major, as V
@@ -714,45 +788,50 @@ flash_attention_bwd_dkdv_kernel(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* _
     ptx::fence_regs(dk_flat);
     ptx::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(dv_flat, pf[kk], do_tile, 16 * kk);
+    for (int kk = 0; kk < NB / 16; ++kk) pv_wgmma<DV, NB>(dv_flat, pf[kk], do_tile, 16 * kk);
 #pragma unroll
-    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(dk_flat, ds_hi[kk], q_tile, 16 * kk);
+    for (int kk = 0; kk < NB / 16; ++kk) pv_wgmma<DQK, NB>(dk_flat, ds_hi[kk], q_tile, 16 * kk);
 #pragma unroll
-    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(dk_flat, ds_lo[kk], q_tile, 16 * kk);
+    for (int kk = 0; kk < NB / 16; ++kk) pv_wgmma<DQK, NB>(dk_flat, ds_lo[kk], q_tile, 16 * kk);
     ptx::wgmma_commit();
     ptx::wgmma_wait<0>();
     ptx::fence_regs(dv_flat);
     ptx::fence_regs(dk_flat);
   }
 
-  // the stages are free: the last iteration issued no copy and every product has ended
-  store_tile<D>(dk, dk_acc, sm_scale, smem + 2 * TT::BYTES, b, kv0, S, K, kh);
-  store_tile<D>(dv, dv_acc, 1.f, smem + 2 * TT::BYTES, b, kv0, S, K, kh);
+  // nothing reads shared memory any more: the last iteration issued no copy
+  // and every product has ended; dK and dV are staged through it from its start
+  store_tile<DQK>(dk, dk_acc, sm_scale, smem, b, kv0, S, K, kh);
+  store_tile<DV>(dv, dv_acc, 1.f, smem, b, kv0, S, K, kh);
 }
 
 // dQ of one 64-row q tile of one q head.  Shared memory: the Q and dO tiles,
-// then two stages of a K and a V tile.
-template <int D>
+// then two stages of an NB-row K and V tile.
+template <int DQK, int DV, int NB>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_attention_bwd_dq_kernel(__nv_bfloat16* __restrict__ dq, const float* __restrict__ lse,
                               const float* __restrict__ delta, int S, int H, int K,
-                              float sm_scale, const __grid_constant__ CUtensorMap q_map,
+                              float sm_scale, int tiles_fast,
+                              const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap do_map,
                               const __grid_constant__ CUtensorMap k_map,
                               const __grid_constant__ CUtensorMap v_map) {
-  using TT = TcTile<D>;
-  constexpr int NT = TC_BN / 8;
+  using TK = TcTile<DQK, NB>;  // a streamed K tile
+  using TV = TcTile<DV, NB>;   // a streamed V tile
+  constexpr int NT = NB / 8, STAGE = TK::BYTES + TV::BYTES;
   __shared__ __align__(8) uint64_t landed[3];  // Q and dO; stage 0; stage 1
   extern __shared__ __align__(16) unsigned char smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw) + (1024 - ptx::smem_addr(smem_raw) % 1024) % 1024;
   const char* q_tile = smem;
-  const char* do_tile = smem + TT::BYTES;
+  const char* do_tile = smem + TcTile<DQK>::BYTES;
+  char* stages = smem + TcTile<DQK>::BYTES + TcTile<DV>::BYTES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const GridPos pos = grid_pos(tiles_fast);
+  const int b = pos.heads / H, h = pos.heads % H;
   const int kh = h / (H / K);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;  // heavy causal tiles first
-  const int j_hi = (min(q0 + TC_BM, S) - 1) / TC_BN;    // the diagonal's kv tile
+  const int q0 = (pos.tiles - 1 - pos.tile) * TC_BM;  // heavy causal tiles first
+  const int j_hi = (min(q0 + TC_BM, S) - 1) / NB;     // the diagonal's kv tile
   const float scale_log2 = sm_scale * LOG2E;
 
   if (tid == 0) {
@@ -761,12 +840,12 @@ flash_attention_bwd_dq_kernel(__nv_bfloat16* __restrict__ dq, const float* __res
   }
   __syncthreads();
   if (tid == 0) {
-    ptx::mbar_expect_tx(&landed[0], 2 * TT::BYTES);
-    tma_tile<D>(smem, &q_map, h, q0, b, &landed[0]);
-    tma_tile<D>(smem + TT::BYTES, &do_map, h, q0, b, &landed[0]);
-    ptx::mbar_expect_tx(&landed[1], 2 * TT::BYTES);
-    tma_tile<D>(smem + 2 * TT::BYTES, &k_map, kh, j_hi * TC_BN, b, &landed[1]);
-    tma_tile<D>(smem + 3 * TT::BYTES, &v_map, kh, j_hi * TC_BN, b, &landed[1]);
+    ptx::mbar_expect_tx(&landed[0], TcTile<DQK>::BYTES + TcTile<DV>::BYTES);
+    tma_tile<DQK>(smem, &q_map, h, q0, b, &landed[0]);
+    tma_tile<DV>(smem + TcTile<DQK>::BYTES, &do_map, h, q0, b, &landed[0]);
+    ptx::mbar_expect_tx(&landed[1], STAGE);
+    tma_tile<DQK, NB>(stages, &k_map, kh, j_hi * NB, b, &landed[1]);
+    tma_tile<DV, NB>(stages + TK::BYTES, &v_map, kh, j_hi * NB, b, &landed[1]);
   }
 
   const int wq0 = q0 + warp * 16;   // the warp's first q row
@@ -780,10 +859,10 @@ flash_attention_bwd_dq_kernel(__nv_bfloat16* __restrict__ dq, const float* __res
     l2[i] = in ? lse[at] * LOG2E : 0.f;
     dl[i] = in ? delta[at] : 0.f;
   }
-  float acc[D / 8][4];
-  float(&acc_flat)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&acc[0][0]);
+  float acc[DQK / 8][4];
+  float(&acc_flat)[DQK / 2] = *reinterpret_cast<float(*)[DQK / 2]>(&acc[0][0]);
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_flat[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc_flat[i] = 0.f;
   ptx::mbar_wait(&landed[0], 0);
 
   int stage = 0;
@@ -791,30 +870,30 @@ flash_attention_bwd_dq_kernel(__nv_bfloat16* __restrict__ dq, const float* __res
     ptx::mbar_wait(&landed[1 + stage], ((j_hi - j) >> 1) & 1);
     __syncthreads();  // nobody reads the other stage any more
     if (j > 0 && tid == 0) {
-      char* nxt = smem + (2 + 2 * (stage ^ 1)) * TT::BYTES;
-      ptx::mbar_expect_tx(&landed[1 + (stage ^ 1)], 2 * TT::BYTES);
-      tma_tile<D>(nxt, &k_map, kh, (j - 1) * TC_BN, b, &landed[1 + (stage ^ 1)]);
-      tma_tile<D>(nxt + TT::BYTES, &v_map, kh, (j - 1) * TC_BN, b, &landed[1 + (stage ^ 1)]);
+      char* nxt = stages + (stage ^ 1) * STAGE;
+      ptx::mbar_expect_tx(&landed[1 + (stage ^ 1)], STAGE);
+      tma_tile<DQK, NB>(nxt, &k_map, kh, (j - 1) * NB, b, &landed[1 + (stage ^ 1)]);
+      tma_tile<DV, NB>(nxt + TK::BYTES, &v_map, kh, (j - 1) * NB, b, &landed[1 + (stage ^ 1)]);
     }
-    const char* k_tile = smem + (2 + 2 * stage) * TT::BYTES;
-    const char* v_tile = k_tile + TT::BYTES;
-    const int k0 = j * TC_BN;
+    const char* k_tile = stages + stage * STAGE;
+    const char* v_tile = k_tile + TK::BYTES;
+    const int k0 = j * NB;
 
-    // S = Q K^T and dP = dO V^T: 64 q rows x 64 kv columns
+    // S = Q K^T and dP = dO V^T: 64 q rows x NB kv columns
     float s[NT][4], dp[NT][4];
     float(&s_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&s[0][0]);
     float(&dp_flat)[4 * NT] = *reinterpret_cast<float(*)[4 * NT]>(&dp[0][0]);
     ptx::wgmma_fence();
-    abt_wgmma<D>(s_flat, q_tile, k_tile);
+    abt_wgmma<DQK, NB>(s_flat, q_tile, k_tile);
     ptx::wgmma_commit();
-    abt_wgmma<D>(dp_flat, do_tile, v_tile);
+    abt_wgmma<DV, NB>(dp_flat, do_tile, v_tile);
     ptx::wgmma_commit();
     ptx::wgmma_wait<1>();
     ptx::fence_regs(s_flat);
 
     // P; a tile that crosses the diagonal for some row of this warp masks the
     // keys past each row (keys past T = S among them)
-    const bool diag = k0 + TC_BN - 1 > wq0;
+    const bool diag = k0 + NB - 1 > wq0;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -829,29 +908,31 @@ flash_attention_bwd_dq_kernel(__nv_bfloat16* __restrict__ dq, const float* __res
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - dl[e >> 1]);
-    uint32_t ds_hi[TC_BN / 16][4], ds_lo[TC_BN / 16][4];
+    uint32_t ds_hi[NB / 16][4], ds_lo[NB / 16][4];
     to_a_frags_split(ds_hi, ds_lo, dp);
 
     // dQ += dS K (hi, then lo), K read n-major as V in the forward
     ptx::fence_regs(acc_flat);
     ptx::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(acc_flat, ds_hi[kk], k_tile, 16 * kk);
+    for (int kk = 0; kk < NB / 16; ++kk) pv_wgmma<DQK, NB>(acc_flat, ds_hi[kk], k_tile, 16 * kk);
 #pragma unroll
-    for (int kk = 0; kk < TC_BN / 16; ++kk) pv_wgmma<D>(acc_flat, ds_lo[kk], k_tile, 16 * kk);
+    for (int kk = 0; kk < NB / 16; ++kk) pv_wgmma<DQK, NB>(acc_flat, ds_lo[kk], k_tile, 16 * kk);
     ptx::wgmma_commit();
     ptx::wgmma_wait<0>();
     ptx::fence_regs(acc_flat);
   }
 
-  // stage 0 is free: the last iteration issued no copy and every product has ended
-  store_tile<D>(dq, acc, sm_scale, smem + 2 * TT::BYTES, b, q0, S, H, h);
+  // nothing reads shared memory any more: the last iteration issued no copy
+  // and every product has ended; dQ is staged through it from its start
+  store_tile<DQK>(dq, acc, sm_scale, smem, b, q0, S, H, h);
 }
 
-template <int D>
+template <int DQK, int DV, int NB>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int B, int S, int H, int K, cudaStream_t stream) {
+                       void* dv, int B, int S, int H, int K, cudaStream_t stream,
+                       int tiles_fast) {
   // TMA and the 16-byte loads and stores need 16-byte aligned rows
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
@@ -859,39 +940,48 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
        reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) % 16)
     return cudaErrorMisalignedAddress;
   EncodeTiled encode;
-  CUtensorMap q_map, do_map, k_map, v_map;
+  // 64-row boxes for each block's own tiles, NB-row boxes for the streamed ones
+  CUtensorMap q_map, do_map, k_map, v_map, q_nb, do_nb, k_nb, v_nb;
   cudaError_t err;
   if ((err = encode_tiled(&encode)) != cudaSuccess ||
-      (err = tile_map<D>(&q_map, encode, q, B, S, H)) != cudaSuccess ||
-      (err = tile_map<D>(&do_map, encode, dout, B, S, H)) != cudaSuccess ||
-      (err = tile_map<D>(&k_map, encode, k, B, S, K)) != cudaSuccess ||
-      (err = tile_map<D>(&v_map, encode, v, B, S, K)) != cudaSuccess)
+      (err = tile_map<DQK>(&q_map, encode, q, B, S, H)) != cudaSuccess ||
+      (err = tile_map<DV>(&do_map, encode, dout, B, S, H)) != cudaSuccess ||
+      (err = tile_map<DQK>(&k_map, encode, k, B, S, K)) != cudaSuccess ||
+      (err = tile_map<DV>(&v_map, encode, v, B, S, K)) != cudaSuccess ||
+      (err = tile_map<DQK, NB>(&q_nb, encode, q, B, S, H)) != cudaSuccess ||
+      (err = tile_map<DV, NB>(&do_nb, encode, dout, B, S, H)) != cudaSuccess ||
+      (err = tile_map<DQK, NB>(&k_nb, encode, k, B, S, K)) != cudaSuccess ||
+      (err = tile_map<DV, NB>(&v_nb, encode, v, B, S, K)) != cudaSuccess)
     return err;
   const long rows = (long)B * S * H;
   constexpr int DELTA_THREADS = 256;
-  flash_attention_bwd_delta_kernel<D>
-      <<<(unsigned)((rows * (D / 8) + DELTA_THREADS - 1) / DELTA_THREADS), DELTA_THREADS, 0,
+  flash_attention_bwd_delta_kernel<DV>
+      <<<(unsigned)((rows * (DV / 8) + DELTA_THREADS - 1) / DELTA_THREADS), DELTA_THREADS, 0,
          stream>>>(static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
                    delta, S, H, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t smem = 6 * TcTile<D>::BYTES + 1024;
-  if ((err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<D>,
+  // each kernel: its own 64-row tiles, then two stages of NB-row ones
+  const size_t smem = (TcTile<DQK>::BYTES + TcTile<DV>::BYTES) +
+                      2 * (TcTile<DQK, NB>::BYTES + TcTile<DV, NB>::BYTES) + 1024;
+  if ((err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<DQK, DV, NB>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
           cudaSuccess ||
-      (err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D>,
+      (err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<DQK, DV, NB>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
           cudaSuccess)
     return err;
-  const float sm_scale = (float)(1.0 / sqrt((double)D));
+  const float sm_scale = (float)(1.0 / sqrt((double)DQK));
   const int tiles = (S + TC_BM - 1) / TC_BM;
-  flash_attention_bwd_dkdv_kernel<D><<<dim3(B * K, tiles), TC_THREADS, smem, stream>>>(
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), lse, delta, S, H, K,
-      sm_scale, q_map, do_map, k_map, v_map);
+  flash_attention_bwd_dkdv_kernel<DQK, DV, NB>
+      <<<grid_of(B * K, tiles, tiles_fast), TC_THREADS, smem, stream>>>(
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), lse, delta, S, H, K,
+          sm_scale, tiles_fast, q_nb, do_nb, k_map, v_map);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_attention_bwd_dq_kernel<D><<<dim3(B * H, tiles), TC_THREADS, smem, stream>>>(
-      static_cast<__nv_bfloat16*>(dq), lse, delta, S, H, K, sm_scale, q_map, do_map, k_map,
-      v_map);
+  flash_attention_bwd_dq_kernel<DQK, DV, NB>
+      <<<grid_of(B * H, tiles, tiles_fast), TC_THREADS, smem, stream>>>(
+          static_cast<__nv_bfloat16*>(dq), lse, delta, S, H, K, sm_scale, tiles_fast, q_map,
+          do_map, k_nb, v_nb);
   return cudaGetLastError();
 }
 
@@ -1100,34 +1190,44 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // Training's causal self-attention: S = T, positions from 0, no window or
-// softcap, bf16; D 64 or 128.  The forward writes o [B,S,H,D] and lse
-// [B,H,S] f32, each row's log-sum-exp of its scaled scores (natural log).
+// softcap, bf16; (D, DV), the q.k and v widths, (64, 64), (128, 128) or
+// (192, 128).  q [B,S,H,D], k [B,S,K,D], v [B,S,K,DV].  The forward writes o
+// [B,S,H,DV] and lse [B,H,S] f32, each row's log-sum-exp of its scaled scores
+// (natural log).
 extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
-                                       float* lse, int B, int S, int H, int K, int D,
+                                       float* lse, int B, int S, int H, int K, int D, int DV,
                                        void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return (int)launch_bf16<64, true>(q, k, v, o, B, S, S, H, K, 1, 0, 0.f, st, lse);
-    case 128: return (int)launch_bf16<128, true>(q, k, v, o, B, S, S, H, K, 1, 0, 0.f, st, lse);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // (192, 128) is latent attention's, whose K = H heads would overflow L2
+  // with every head's K and V in flight: its tiles run on the fast axis
+  if (D == 64 && DV == 64)
+    return (int)launch_bf16<64, 64, true>(q, k, v, o, B, S, S, H, K, 1, 0, 0.f, st, lse);
+  if (D == 128 && DV == 128)
+    return (int)launch_bf16<128, 128, true>(q, k, v, o, B, S, S, H, K, 1, 0, 0.f, st, lse);
+  if (D == 192 && DV == 128)
+    return (int)launch_bf16<192, 128, true>(q, k, v, o, B, S, S, H, K, 1, 0, 0.f, st, lse, 1);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Its gradient: dq [B,S,H,D] and dk, dv [B,S,K,D] in bf16 from dout
-// [B,S,H,D] and the forward's o and lse; delta [B,H,S] f32 is scratch.  Three
-// launches on `stream`; returns cudaGetLastError() and never synchronises.
+// Its gradient: dq [B,S,H,D], dk [B,S,K,D] and dv [B,S,K,DV] in bf16 from
+// dout [B,S,H,DV] and the forward's o and lse; delta [B,H,S] f32 is scratch.
+// Three launches on `stream`; returns cudaGetLastError() and never
+// synchronises.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
-                                   void* dk, void* dv, int B, int S, int H, int K, int D,
+                                   void* dk, void* dv, int B, int S, int H, int K, int D, int DV,
                                    void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return (int)launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, K, st);
-    case 128:
-      return (int)launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, K, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D == 64 && DV == 64)
+    return (int)launch_bwd<64, 64, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, K, st,
+                                       0);
+  if (D == 128 && DV == 128)
+    return (int)launch_bwd<128, 128, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, K,
+                                         st, 0);
+  if (D == 192 && DV == 128)
+    return (int)launch_bwd<192, 128, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, K,
+                                         st, 1);
+  return (int)cudaErrorInvalidValue;
 }

@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import tracing
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import moe_gmm as _gmm
@@ -175,7 +176,7 @@ def _causal_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
 @_causal_attention_fwd_op.register_fake
 def _(q, k, v):
     B, S, H, _ = q.shape
-    return torch.empty_like(q), q.new_empty((B, H, S), dtype=torch.float32)
+    return q.new_empty((B, S, H, v.shape[-1])), q.new_empty((B, H, S), dtype=torch.float32)
 
 
 @torch.library.custom_op("repro_torch::causal_attention_bwd", mutates_args=())
@@ -195,15 +196,17 @@ def _(dout, q, k, v, out, lse):
 @register_flop_formula(torch.ops.repro_torch.causal_attention_fwd)
 def _causal_attention_fwd_flops(q_shape, k_shape, v_shape, *args, out_shape=None,
                                 **kwargs) -> int:
+    # S = Q K^T over D, O = P V over DV
     B, S, H, D = q_shape
-    return 4 * B * H * D * attended_pairs(S, S, True, None)
+    return 2 * B * H * (D + v_shape[-1]) * attended_pairs(S, S, True, None)
 
 
 @register_flop_formula(torch.ops.repro_torch.causal_attention_bwd)
 def _causal_attention_bwd_flops(dout_shape, q_shape, *args, out_shape=None, **kwargs) -> int:
-    # S = Q K^T again, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q
+    # S = Q K^T again, dQ = dS K, dK = dS^T Q over D; dP = dO V^T, dV = P^T dO
+    # over DV (dout's width)
     B, S, H, D = q_shape
-    return 10 * B * H * D * attended_pairs(S, S, True, None)
+    return 2 * B * H * (3 * D + 2 * dout_shape[-1]) * attended_pairs(S, S, True, None)
 
 
 @torch.library.custom_op("repro_torch::mamba_scan", mutates_args=())
@@ -261,32 +264,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, logit_softcap)
 
 
+def _pairs_span(name: str, q: torch.Tensor, v: torch.Tensor):
+    """The span ``name`` around one launch of the training pair, counting the
+    unmasked (query, key) pairs of every head times the q.k width
+    (``qk_pairs``) and times v's (``v_pairs``); tracing off, the no-op span."""
+    if not tracing.enabled():
+        return tracing.span(name)
+    B, S, H, D = q.shape
+    pairs = B * H * attended_pairs(S, S, True, None)
+    return tracing.span(name, qk_pairs=pairs * D, v_pairs=pairs * v.shape[-1])
+
+
 class _CausalAttention(torch.autograd.Function):
     """Causal self-attention whose forward keeps each row's log-sum-exp and
     whose backward recomputes P from it.  Under a non-reentrant
-    ``checkpoint`` (remat) its forward runs again before its backward."""
+    ``checkpoint`` (remat) its forward runs again before its backward.  Each
+    runs inside a span of its own (``attention.causal_fwd``,
+    ``attention.causal_bwd``) that holds the launches alone."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out, lse = torch.ops.repro_torch.causal_attention_fwd(q, k, v)
+        with _pairs_span("attention.causal_fwd", q, v):
+            out, lse = torch.ops.repro_torch.causal_attention_fwd(q, k, v)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        return tuple(torch.ops.repro_torch.causal_attention_bwd(dout.contiguous(),
-                                                                *ctx.saved_tensors))
+        dout = dout.contiguous()
+        saved = ctx.saved_tensors  # unpacked once: a checkpoint allows no second unpack
+        with _pairs_span("attention.causal_bwd", saved[0], saved[2]):
+            return tuple(torch.ops.repro_torch.causal_attention_bwd(dout, *saved))
 
 
-#: head dims :func:`causal_attention` takes on the card
+#: (q.k, v) head dims :func:`causal_attention` takes on the card
 CAUSAL_HEAD_DIMS = _fa.CAUSAL_HEAD_DIMS
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal self-attention of plain tensors, positions from 0: q [B,S,H,D],
-    k/v [B,S,K,D] -> [B,S,H,D], differentiable.  A CUDA tensor runs the
-    training kernels (bf16, D in :data:`CAUSAL_HEAD_DIMS`), a CPU tensor
-    their plain versions."""
+    k [B,S,K,D], v [B,S,K,DV] -> [B,S,H,DV], differentiable.  A CUDA tensor
+    runs the training kernels (bf16, (D, DV) in :data:`CAUSAL_HEAD_DIMS`), a
+    CPU tensor their plain versions."""
     return _CausalAttention.apply(q.contiguous(), k.contiguous(), v.contiguous())
 
 

@@ -56,13 +56,14 @@ def _causal_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def causal_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal self-attention (S = T, positions from 0) with ``attend_xla``'s
-    arithmetic: q [B,S,H,D], k/v [B,S,K,D] -> (out [B,S,H,D] in v's dtype,
-    lse [B,H,S] f32, each row's log-sum-exp of its scaled scores)."""
-    B, S, H, D = q.shape
+    arithmetic: q [B,S,H,D], k [B,S,K,D], v [B,S,K,DV] -> (out [B,S,H,DV] in
+    v's dtype, lse [B,H,S] f32, each row's log-sum-exp of its scaled
+    scores)."""
+    B, S, H, _ = q.shape
     s = _causal_scores(q, k)
     p = torch.softmax(s, dim=-1)
     # probs rounded to v's dtype before the PV product, as attend_xla does
-    out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v).reshape(B, S, H, D)
+    out = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v).reshape(B, S, H, v.shape[-1])
     return out, torch.logsumexp(s, dim=-1).reshape(B, H, S)
 
 
@@ -72,16 +73,16 @@ def causal_attention_bwd_ref(dout: torch.Tensor, q: torch.Tensor, k: torch.Tenso
     """The gradient of :func:`causal_attention_fwd_ref` in closed form, from P
     recomputed from ``lse`` and Delta = rowsum(dout o out): dV = P^T dO,
     dP = dO V^T, dS = P o (dP - Delta), dQ = dS K / sqrt(D), dK = dS^T Q /
-    sqrt(D), GQA's group summed into dK and dV; f32 sums.  P is rounded to
-    q's dtype as dV's operand, as the forward rounds it for PV (a no-op in
-    f32); dS stays f32, as the reference's is.  Returns (dq, dk, dv) in the
-    inputs' dtypes."""
+    sqrt(D), GQA's group summed into dK and dV; f32 sums.  D is q's and k's
+    width, DV v's, dout's and out's.  P is rounded to q's dtype as dV's
+    operand, as the forward rounds it for PV (a no-op in f32); dS stays f32,
+    as the reference's is.  Returns (dq, dk, dv) in the inputs' dtypes."""
     B, S, H, D = q.shape
-    K = k.shape[2]
+    K, DV = k.shape[2], v.shape[-1]
     G = H // K
     p = torch.exp(_causal_scores(q, k) - lse.reshape(B, K, G, S, 1))
-    do = dout.reshape(B, S, K, G, D).float()
-    delta = (do * out.reshape(B, S, K, G, D).float()).sum(-1).permute(0, 2, 3, 1)
+    do = dout.reshape(B, S, K, G, DV).float()
+    delta = (do * out.reshape(B, S, K, G, DV).float()).sum(-1).permute(0, 2, 3, 1)
     dv = torch.einsum("bkgst,bskgd->btkd", p.to(q.dtype).float(), do)
     dp = torch.einsum("bskgd,btkd->bkgst", do, v.float())
     ds = p * (dp - delta[..., None])

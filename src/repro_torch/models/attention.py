@@ -120,10 +120,10 @@ def fused_causal(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
     """Whether :func:`attend_xla`'s function at these inputs is the training
     kernels' (:func:`repro_torch.kernels.ops.causal_attention`): causal
     self-attention (S = T) with no cache mask, softcap or window narrower
-    than S, on plain bf16 CUDA tensors of a head dim the kernels take, with
-    one 1-D position tensor for queries and keys (or none).  As on the flash
-    route, those positions are taken to be arange(S): every caller passes
-    that, and the kernels mask key j from query i by j > i alone."""
+    than S, on plain bf16 CUDA tensors whose (q.k, v) head dims the kernels
+    take, with one 1-D position tensor for queries and keys (or none).  As on
+    the flash route, those positions are taken to be arange(S): every caller
+    passes that, and the kernels mask key j from query i by j > i alone."""
     S = q.shape[1]
     return (causal and kv_valid is None and not logit_softcap
             and (window is None or window >= S) and k.shape[1] == S
@@ -131,7 +131,7 @@ def fused_causal(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
             and (q_positions is None or q_positions.dim() == 1)
             and not any(isinstance(t, DTensor) for t in (q, k, v))
             and all(t.device.type == "cuda" and t.dtype == torch.bfloat16 for t in (q, k, v))
-            and q.shape[-1] in kernel_ops.CAUSAL_HEAD_DIMS)
+            and (q.shape[-1], v.shape[-1]) in kernel_ops.CAUSAL_HEAD_DIMS)
 
 
 def attend(cfg: ModelConfig, q, k, v, **kw) -> torch.Tensor:
@@ -299,8 +299,10 @@ def apply_mla(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
         q_pe and the one k_pe that every head shares rotated (split-half RoPE);
         softmax((q_nope k_nope + q_pe k_pe) / sqrt(nope + rope)) v, then W_o.
 
-    The scores run on the einsum route (:func:`attend_xla`): no kernel takes a
-    q.k width (192) other than v's (128)."""
+    Where :func:`fused_causal` holds (training's bf16 CUDA tensors at q.k 192
+    and v 128), the scores run once over the whole batch in the training
+    kernels (:func:`repro_torch.kernels.ops.causal_attention`); anything else
+    on the einsum route (:func:`attend_xla`), a slice of rows at a time."""
     H, r = cfg.n_heads, cfg.kv_lora_rank
     nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     with tracing.span("attention.mla"):
@@ -314,15 +316,18 @@ def apply_mla(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     k_pe = L.apply_rope(k_pe.unsqueeze(-2), positions, cfg.rope_theta)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:-1], rope)], dim=-1)
-    # the f32 scores a slice of rows at a time, each slice's under
-    # MLA_SCORES_BYTES: the temporaries of one slice live at once, not of the
-    # whole batch (some 20 GB at 16 rows of 2048)
-    B, S = q.shape[0], q.shape[1]
-    rows = max(1, MLA_SCORES_BYTES // (4 * H * S * S))
-    out = torch.cat([attend_xla(q[i:i + rows], k[i:i + rows], v[i:i + rows], causal=True,
-                                q_positions=positions, kv_positions=positions, window=window,
-                                logit_softcap=cfg.attn_logit_softcap)
-                     for i in range(0, B, rows)])
+    kw = dict(causal=True, q_positions=positions, kv_positions=positions, window=window,
+              logit_softcap=cfg.attn_logit_softcap)
+    if fused_causal(q, k, v, **kw):
+        out = kernel_ops.causal_attention(q, k, v)
+    else:
+        # the f32 scores a slice of rows at a time, each slice's under
+        # MLA_SCORES_BYTES: the temporaries of one slice live at once, not of
+        # the whole batch (some 20 GB at 16 rows of 2048)
+        B, S = q.shape[0], q.shape[1]
+        rows = max(1, MLA_SCORES_BYTES // (4 * H * S * S))
+        out = torch.cat([attend_xla(q[i:i + rows], k[i:i + rows], v[i:i + rows], **kw)
+                         for i in range(0, B, rows)])
     return L.apply_dense(params["wo"], _merge_heads(out))
 
 

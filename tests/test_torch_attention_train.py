@@ -2,9 +2,13 @@
 versions (``ref.causal_attention_fwd_ref`` / ``_bwd_ref``) and
 ``ops.causal_attention`` on the CPU against ``jax.vjp`` of the reference's
 ``repro.models.attention.attend_xla`` and against autograd through the
-port's, the dispatch in ``attention.attend`` (fake CUDA tensors stand in for
-the card's), and ``ops.causal_attention`` under remat.
+port's, the dispatch in ``attention.attend`` and ``attention.apply_mla``
+(fake CUDA tensors stand in for the card's), and ``ops.causal_attention``
+under remat.  Each at one width for q, k and v and at latent attention's
+(q.k 192, v 128: ``DV`` below).
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +22,7 @@ from torch.utils.checkpoint import checkpoint  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro.models import attention as jax_attn  # noqa: E402
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, tracing  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -29,10 +33,11 @@ F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 
 
-def _qkv(B, S, H, K, D, dtype=torch.float32, seed=0, device="cpu"):
+def _qkv(B, S, H, K, D, dtype=torch.float32, seed=0, device="cpu", DV=None):
+    """q, k [.., D] and v, dout [.., DV] (DV = D unless given)."""
     gen = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(B, S, n, D, generator=gen).to(dtype).to(device)
-                   for n in (H, K, K, H))
+    q, k, v, do = (torch.randn(B, S, n, d, generator=gen).to(dtype).to(device)
+                   for n, d in ((H, D), (K, D), (K, DV or D), (H, DV or D)))
     return q, k, v, do
 
 
@@ -42,15 +47,21 @@ def _autograd(q, k, v, do):
     return (out, *torch.autograd.grad(out, (q, k, v), do))
 
 
-@pytest.mark.parametrize("dtype,tol,S,H,K,D", [
-    (torch.float32, F32, S, H, K, D)
+# (dtype, tolerance, S, H, K, D, DV): one width, then latent attention's
+TRAIN_CASES = [
+    (torch.float32, F32, S, H, K, D, D)
     for H, K in ((4, 2), (4, 4)) for D in (64, 128) for S in (64, 100)
-] + [(torch.bfloat16, BF16, 100, 4, 2, 128)])
-def test_plain_versions_match_autograd_through_attend_xla(dtype, tol, S, H, K, D):
+] + [(torch.bfloat16, BF16, 100, 4, 2, 128, 128)] + [
+    (torch.float32, F32, S, H, K, 192, 128) for H, K in ((4, 2), (4, 4)) for S in (64, 100)
+] + [(torch.bfloat16, BF16, 100, 4, 4, 192, 128)]
+
+
+@pytest.mark.parametrize("dtype,tol,S,H,K,D,DV", TRAIN_CASES)
+def test_plain_versions_match_autograd_through_attend_xla(dtype, tol, S, H, K, D, DV):
     """The plain forward is attend_xla's arithmetic and its log-sum-exp is the
     rows' of the scaled, masked scores; the closed-form backward from it
     gives autograd's dq, dk and dv (GQA's group summed into dk and dv)."""
-    q, k, v, do = _qkv(2, S, H, K, D, dtype)
+    q, k, v, do = _qkv(2, S, H, K, D, dtype, DV=DV)
     want_out, *want = _autograd(q, k, v, do)
     out, lse = ref.causal_attention_fwd_ref(q, k, v)
     assert out.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (2, H, S)
@@ -69,9 +80,18 @@ def _jax(t):
 
 
 def _reference_vjp(q, k, v, do):
-    """The reference's output and (dq, dk, dv): jax.vjp of its attend_xla."""
-    out, vjp = jax.vjp(lambda q, k, v: jax_attn.attend_xla(q, k, v, causal=True),
-                       _jax(q), _jax(k), _jax(v))
+    """The reference's output and (dq, dk, dv): jax.vjp of its attend_xla.
+    The reference takes one width for q, k and v, so a narrower v enters
+    with zero columns up to q's width and the output leaves without them:
+    the same function of (q, k, v), whose v gradient is the padded one's
+    first DV columns."""
+    D, DV = q.shape[-1], v.shape[-1]
+
+    def fn(q, k, v):
+        v_wide = jnp.pad(v, [(0, 0)] * 3 + [(0, D - DV)])
+        return jax_attn.attend_xla(q, k, v_wide, causal=True)[..., :DV]
+
+    out, vjp = jax.vjp(fn, _jax(q), _jax(k), _jax(v))
     return (out, *vjp(_jax(do)))
 
 
@@ -80,15 +100,12 @@ def _close_to_jax(got, want, tol, name):
                                err_msg=name)
 
 
-@pytest.mark.parametrize("dtype,tol,S,H,K,D", [
-    (torch.float32, F32, S, H, K, D)
-    for H, K in ((4, 2), (4, 4)) for D in (64, 128) for S in (64, 100)
-] + [(torch.bfloat16, BF16, 100, 4, 2, 128)])
-def test_plain_versions_and_the_function_match_the_reference_vjp(dtype, tol, S, H, K, D):
+@pytest.mark.parametrize("dtype,tol,S,H,K,D,DV", TRAIN_CASES)
+def test_plain_versions_and_the_function_match_the_reference_vjp(dtype, tol, S, H, K, D, DV):
     """The plain forward and the closed-form backward, and the Function
     through autograd on the CPU, give the reference's attend_xla output and
     its gradient under jax.vjp on the same q, k, v and dout."""
-    q, k, v, do = _qkv(2, S, H, K, D, dtype, seed=4)
+    q, k, v, do = _qkv(2, S, H, K, D, dtype, seed=4, DV=DV)
     want_out, *want = _reference_vjp(q, k, v, do)
     out, lse = ref.causal_attention_fwd_ref(q, k, v)
     _close_to_jax(out, want_out, tol, "out")
@@ -116,7 +133,8 @@ def test_causal_attention_is_the_plain_pair_on_the_cpu():
         torch.testing.assert_close(got, exp, rtol=0, atol=0)
 
 
-def test_causal_attention_under_checkpoint_gives_the_same_gradients(monkeypatch):
+@pytest.mark.parametrize("D,DV", [(64, 64), (192, 128)])
+def test_causal_attention_under_checkpoint_gives_the_same_gradients(monkeypatch, D, DV):
     """Under remat's non-reentrant checkpoint the forward runs again before
     the backward, and the gradients are those without it."""
     calls = {"fwd": 0, "bwd": 0}
@@ -130,8 +148,8 @@ def test_causal_attention_under_checkpoint_gives_the_same_gradients(monkeypatch)
 
     monkeypatch.setattr(ref, "causal_attention_fwd_ref", counted("fwd", fwd))
     monkeypatch.setattr(ref, "causal_attention_bwd_ref", counted("bwd", bwd))
-    q, k, v, do = _qkv(2, 64, 4, 2, 64)
-    x = torch.randn(2, 64, 4, 64, generator=torch.Generator().manual_seed(3))
+    q, k, v, do = _qkv(2, 64, 4, 2, D, DV=DV)
+    x = torch.randn(2, 64, 4, D, generator=torch.Generator().manual_seed(3))
 
     def block(q, k, v):
         return torch.tanh(ops.causal_attention(q * x, k, v))
@@ -146,19 +164,52 @@ def test_causal_attention_under_checkpoint_gives_the_same_gradients(monkeypatch)
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-def test_flop_formulas_count_the_causal_products():
-    """FlopCounterMode counts the forward's two products and the backward's
-    five over the causal pairs."""
-    B, S, H, K, D = 2, 100, 4, 2, 64
-    q, k, v, do = _qkv(B, S, H, K, D)
+@pytest.mark.parametrize("D,DV", [(64, 64), (192, 128)])
+def test_flop_formulas_count_the_causal_products(D, DV):
+    """FlopCounterMode counts the forward's two products (S over D, PV over
+    DV) and the backward's five (S, dQ and dK over D; dP and dV over DV)
+    over the causal pairs: 4 D and 10 D a pair and head at DV = D."""
+    B, S, H, K = 2, 100, 4, 2
+    q, k, v, do = _qkv(B, S, H, K, D, DV=DV)
     leaves = [t.requires_grad_() for t in (q, k, v)]
     pairs = S * (S + 1) // 2
     with FlopCounterMode(display=False) as fwd:
         out = ops.causal_attention(*leaves)
-    assert fwd.get_total_flops() == 4 * B * H * D * pairs
+    assert fwd.get_total_flops() == 2 * (D + DV) * B * H * pairs
     with FlopCounterMode(display=False) as bwd:
         out.backward(do)
-    assert bwd.get_total_flops() == 10 * B * H * D * pairs
+    assert bwd.get_total_flops() == 2 * (3 * D + 2 * DV) * B * H * pairs
+
+
+@pytest.mark.parametrize("D,DV", [(64, 64), (192, 128)])
+def test_spans_count_the_pairs_of_each_launch(D, DV):
+    """With tracing on, each forward of the Function (again in remat's
+    recompute) is an ``attention.causal_fwd`` span and its backward an
+    ``attention.causal_bwd`` span, each counting the unmasked pairs of every
+    head times the q.k width (``qk_pairs``) and times v's (``v_pairs``); with
+    tracing off nothing is recorded."""
+    B, S, H, K = 2, 100, 4, 2
+    q, k, v, do = _qkv(B, S, H, K, D, DV=DV)
+    pairs = B * H * S * (S + 1) // 2
+
+    def step():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = checkpoint(ops.causal_attention, *leaves, use_reentrant=False)
+        torch.autograd.grad(out, leaves, do)
+
+    tracing.drain()
+    step()
+    assert tracing.drain() == []
+    tracing.enable()
+    try:
+        step()
+    finally:
+        tracing.disable()
+    spans = tracing.drain()
+    names = sorted(s["name"] for s in spans)
+    assert names == ["attention.causal_bwd"] + 2 * ["attention.causal_fwd"]
+    for s in spans:
+        assert s["attrs"] == {"qk_pairs": pairs * D, "v_pairs": pairs * DV}
 
 
 # --- dispatch -------------------------------------------------------------------------
@@ -185,11 +236,11 @@ def _routes(q, k, v, **kw):
     return calls["fused"], calls["plain"]
 
 
-def _fake_cuda(B, S, H, K, D, dtype=torch.bfloat16, T=None):
+def _fake_cuda(B, S, H, K, D, dtype=torch.bfloat16, T=None, DV=None):
     T = S if T is None else T
     return (torch.empty(B, S, H, D, dtype=dtype, device="cuda"),
             torch.empty(B, T, K, D, dtype=dtype, device="cuda"),
-            torch.empty(B, T, K, D, dtype=dtype, device="cuda"))
+            torch.empty(B, T, K, DV or D, dtype=dtype, device="cuda"))
 
 
 def test_positions_other_than_one_shared_1d_tensor_keep_attend_xla():
@@ -210,8 +261,8 @@ def test_causal_self_attention_of_cuda_bf16_takes_the_kernels():
     wide is no window) goes through the training kernels' ops (their fake
     implementations here: no autograd, whose engine would need a card)."""
     with FakeTensorMode():
-        for D in ops.CAUSAL_HEAD_DIMS:
-            assert _routes(*_fake_cuda(2, 64, 4, 2, D), causal=True) == (1, 0)
+        for D, DV in ops.CAUSAL_HEAD_DIMS:
+            assert _routes(*_fake_cuda(2, 64, 4, 2, D, DV=DV), causal=True) == (1, 0)
         assert _routes(*_fake_cuda(2, 64, 4, 2, 128), causal=True, window=64) == (1, 0)
         out = attn.attend(_CFG, *_fake_cuda(2, 64, 4, 2, 128), causal=True)
         assert out.shape == (2, 64, 4, 128) and out.dtype == torch.bfloat16
@@ -225,6 +276,8 @@ BYPASSES = {
     "cross_length": dict(T=96),
     "float32": dict(dtype=torch.float32),
     "head_dim_96": dict(D=96),
+    "head_dims_192_192": dict(D=192, DV=192),
+    "head_dims_96_128": dict(D=96, DV=128),
 }
 
 
@@ -235,7 +288,8 @@ def test_bypasses_keep_attend_xla(case, monkeypatch):
     attend_xla stubbed: a constant on a CUDA device cannot be made here), and
     on CPU tensors attend() computes attend_xla's output bit for bit."""
     kw = dict(BYPASSES.get(case, {}))
-    shape = dict(B=2, S=64, H=4, K=2, D=kw.pop("D", 128), T=kw.pop("T", None))
+    shape = dict(B=2, S=64, H=4, K=2, D=kw.pop("D", 128), T=kw.pop("T", None),
+                 DV=kw.pop("DV", None))
     dtype = kw.pop("dtype", torch.bfloat16)
     kw = {"causal": True, **kw}
 
@@ -250,7 +304,7 @@ def test_bypasses_keep_attend_xla(case, monkeypatch):
                 kw["kv_valid"] = valid(q, k)
             assert _routes(q, k, v, **kw) == (0, 1)
     q, k, v, _ = _qkv(shape["B"], shape["S"], shape["H"], shape["K"], shape["D"],
-                      torch.bfloat16 if case == "cpu" else dtype)
+                      torch.bfloat16 if case == "cpu" else dtype, DV=shape["DV"])
     if shape["T"] is not None:
         k, v = (torch.cat([t, t[:, :shape["T"] - shape["S"]]], dim=1) for t in (k, v))
     if kw.get("kv_valid") is not None:
@@ -258,6 +312,52 @@ def test_bypasses_keep_attend_xla(case, monkeypatch):
     assert _routes(q, k, v, **kw) == (0, 1)
     torch.testing.assert_close(attn.attend(_CFG, q, k, v, **kw), attn.attend_xla(q, k, v, **kw),
                                rtol=0, atol=0)
+
+
+# moonlight's block at SMOKE width, its latent attention at the published
+# head widths (q.k 128 + 64, v 128), which the kernels take
+_MLA_CFG = configs.get("moonlight-16b-a3b", smoke=True).replace(
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+
+
+@pytest.mark.parametrize("device,want", [("cuda", (1, 0)), ("cpu", (0, 3))])
+def test_latent_attention_of_cuda_bf16_takes_the_kernels_once(device, want, monkeypatch):
+    """``apply_mla`` at q.k 192 and v 128, on bf16 CUDA tensors (fake ones),
+    sends its scores through the training kernels' op once over the whole
+    batch of 3 rows, with no slice loop, though ``MLA_SCORES_BYTES`` would cut
+    the einsum route into one row a slice; on CPU tensors, which the kernels
+    do not take, the einsum route runs its 3 slices."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.models.transformer import layer_params
+
+    cfg = _MLA_CFG
+    p = layer_params(Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")["blocks"],
+                     0)["attn"]
+    B, S = 3, 64
+    monkeypatch.setattr(attn, "MLA_SCORES_BYTES", 4 * cfg.n_heads * S * S)
+    calls = {"fused": 0, "plain": 0}
+    plain = attn.attend_xla
+
+    def count_fused(q, k, v):  # the op's output; autograd on fake tensors would need a card
+        calls["fused"] += 1
+        return q.new_empty(q.shape[:-1] + (v.shape[-1],))
+
+    def count_plain(*a, **kw):
+        calls["plain"] += 1
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(ops, "causal_attention", count_fused)
+    monkeypatch.setattr(attn, "attend_xla", count_plain)
+    # RoPE makes a constant on the device, which a fake CUDA tensor cannot be
+    # made from here; the route does not depend on it
+    monkeypatch.setattr(L, "apply_rope", lambda x, positions, theta: x)
+    with FakeTensorMode() if device == "cuda" else contextlib.nullcontext():
+        pc = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), p)
+        x = torch.zeros(B, S, cfg.d_model, dtype=torch.bfloat16, device=device)
+        out = attn.apply_mla(pc, cfg, x, torch.arange(S, device=device))
+    assert (calls["fused"], calls["plain"]) == want
+    assert out.shape == (B, S, cfg.d_model) and out.dtype == torch.bfloat16
 
 
 def test_dtensors_keep_attend_xla():
@@ -284,12 +384,14 @@ def test_flash_attention_still_raises_under_grad():
         ops.flash_attention(q.requires_grad_(), k, v, causal=True)
 
 
-def test_a_remat_train_step_through_the_kernels_matches_attend_xla(monkeypatch):
-    """A SMOKE internlm2 gradient under remat "full" with the training
-    kernels' route taken on the CPU (their plain versions) runs their
-    forward twice a layer (forward and recompute) and their backward once,
-    and gives attend_xla's loss and gradients in f32."""
-    cfg = _CFG.replace(compute_dtype="float32", remat_policy="full")
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "moonlight-16b-a3b"])
+def test_a_remat_train_step_through_the_kernels_matches_attend_xla(monkeypatch, arch):
+    """A SMOKE internlm2 or moonlight gradient under remat "full" with the
+    training kernels' route taken on the CPU (their plain versions; moonlight's
+    latent attention at q.k 24, v 16) runs their forward twice a layer
+    (forward and recompute) and their backward once, and gives the einsum
+    route's (attend_xla's) loss and gradients in f32."""
+    cfg = configs.get(arch, smoke=True).replace(compute_dtype="float32", remat_policy="full")
     params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
     redraw_params_(params, 0)
     t = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1))
