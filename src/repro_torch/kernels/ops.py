@@ -26,9 +26,9 @@ Each entry point also takes DTensors (a model run under
 runs its own plain-tensor route on each rank's local shards through
 ``local_map``: attention with the batch over the data axes and the heads
 over "model", the scan with ``ssm_heads`` over "model" (``Bm``/``Cm``
-whole on every rank), the expert FFN with the experts over "model" at
-:func:`moe_expert_mlp`'s ``[G,E,C,D]`` level, so that ``e % Ew`` indexes
-the local slabs.  No tensor is gathered whole to feed a kernel; what is
+whole on every rank), the grouped matmul with the experts over "model"
+where x and w hold the same ones, so that ``e % Ew`` indexes the local
+slabs.  No tensor is gathered whole to feed a kernel; what is
 gathered is what the local computation needs (the kv heads of a rank's
 query heads when they are not sharded with them, an expert weight's
 FSDP-sharded ``embed`` dim).
@@ -52,7 +52,6 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import tracing
@@ -301,6 +300,16 @@ class _CausalAttention(torch.autograd.Function):
 CAUSAL_HEAD_DIMS = _fa.CAUSAL_HEAD_DIMS
 
 
+def causal_attention_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether :func:`causal_attention` runs the training kernels on q, k, v:
+    plain (not DTensor) bf16 CUDA tensors, as many keys as queries (S = T)
+    and (q.k, v) head dims in :data:`CAUSAL_HEAD_DIMS`."""
+    return (not any(sharding.is_dtensor(t) for t in (q, k, v))
+            and all(t.device.type == "cuda" and t.dtype == torch.bfloat16 for t in (q, k, v))
+            and k.shape[1] == q.shape[1]
+            and (q.shape[-1], v.shape[-1]) in CAUSAL_HEAD_DIMS)
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal self-attention of plain tensors, positions from 0: q [B,S,H,D],
     k [B,S,K,D], v [B,S,K,DV] -> [B,S,H,DV], differentiable.  A CUDA tensor
@@ -333,28 +342,3 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         xp = sharding.follow(x.placements, {0: 0} if x.shape[0] == w.shape[0] else {})
         return sharding.local_map(gmm, xp, (xp, xp), x.device_mesh)(x, w)
     return torch.ops.repro_torch.gmm(x, w)
-
-
-def moe_expert_mlp(expert_in: torch.Tensor, experts: dict, cfg) -> torch.Tensor:
-    """SwiGLU expert FFN via grouped matmuls.  expert_in [(G,)E,C,D]."""
-    if sharding.is_dtensor(expert_in):
-        axes = ("batch", "experts", "expert_capacity", "embed")[4 - expert_in.dim():]
-        xp = sharding.act_placements(expert_in, *axes)
-        e = expert_in.dim() - 3
-        wp = sharding.follow(xp, {e: 0})
-        names = ("gate", "up", "down")
-        local = lambda x, *ws: moe_expert_mlp(x, dict(zip(names, ws)), cfg)  # noqa: E731
-        return sharding.local_map(local, xp, (xp, wp, wp, wp), expert_in.device_mesh)(
-            expert_in, *(experts[n] for n in names))
-    squeeze = expert_in.dim() == 3
-    if squeeze:
-        expert_in = expert_in[None]
-    G, E, C, D = expert_in.shape
-    # the dispatch einsum may hand over a permuted view; the kernel reads rows
-    x = expert_in.reshape(G * E, C, D).contiguous()
-    w_gate = experts["gate"].to(x.dtype)
-    w_up = experts["up"].to(x.dtype)
-    w_down = experts["down"].to(x.dtype)
-    h = F.silu(gmm(x, w_gate)) * gmm(x, w_up)
-    out = gmm(h, w_down).reshape(G, E, C, D)
-    return out[0] if squeeze else out

@@ -119,22 +119,24 @@ def fused_causal(q, k, v, *, causal: bool, q_positions=None, kv_positions=None,
                  logit_softcap: float | None = None) -> bool:
     """Whether :func:`attend_xla`'s function at these inputs is the training
     kernels' (:func:`repro_torch.kernels.ops.causal_attention`): causal
-    self-attention (S = T) with no cache mask, softcap or window narrower
-    than S, on plain bf16 CUDA tensors whose (q.k, v) head dims the kernels
-    take, with one 1-D position tensor for queries and keys (or none).  As on
-    the flash route, those positions are taken to be arange(S): every caller
-    passes that, and the kernels mask key j from query i by j > i alone."""
-    S = q.shape[1]
+    attention with no cache mask, softcap or window narrower than S, with
+    one 1-D position tensor for queries and keys (or none), on tensors the
+    kernels take (:func:`repro_torch.kernels.ops.causal_attention_takes`).
+    As on the flash route, those positions are taken to be arange(S): every
+    caller passes that, and the kernels mask key j from query i by j > i
+    alone."""
     return (causal and kv_valid is None and not logit_softcap
-            and (window is None or window >= S) and k.shape[1] == S
+            and (window is None or window >= q.shape[1])
             and q_positions is kv_positions
             and (q_positions is None or q_positions.dim() == 1)
-            and not any(isinstance(t, DTensor) for t in (q, k, v))
-            and all(t.device.type == "cuda" and t.dtype == torch.bfloat16 for t in (q, k, v))
-            and (q.shape[-1], v.shape[-1]) in kernel_ops.CAUSAL_HEAD_DIMS)
+            and kernel_ops.causal_attention_takes(q, k, v))
 
 
 def attend(cfg: ModelConfig, q, k, v, **kw) -> torch.Tensor:
+    """Self-attention through the kernel that takes it: flash under
+    ``attention_impl="flash"`` (without a cache mask), else the training
+    kernels where :func:`fused_causal` holds, else :func:`attend_xla`.
+    ``kw`` are :func:`attend_xla`'s."""
     if cfg.attention_impl == "flash" and kw.get("kv_valid") is None:
         return kernel_ops.flash_attention(
             q, k, v,
@@ -173,6 +175,21 @@ def clamped_start(start: int, size: int, length: int) -> int:
     (a decoder position at or beyond whisper's 448) the reference reads and
     writes the last ``size`` rows instead of raising."""
     return min(max(start, 0), length - size)
+
+
+def attend_cache(q: torch.Tensor, cache: dict, positions: torch.Tensor, cache_position: int,
+                 *, window: int | None = None,
+                 logit_softcap: float | None = None) -> torch.Tensor:
+    """q [B,S,H,D] at ``positions`` against the KV cache [B,T,K,D], its k and
+    v already written at ``cache_position``: causal :func:`attend_xla` over
+    the whole cache, each key before ``cache_position + S`` valid, as the
+    reference attends over its cache (``repro/models/attention.py:149-166``)."""
+    T = cache["k"].shape[1]
+    kv_pos = torch.arange(T, device=q.device)
+    valid = (kv_pos[None, :] < cache_position + q.shape[1]).expand(q.shape[0], T)
+    return attend_xla(q, cache["k"], cache["v"], causal=True, q_positions=positions,
+                      kv_positions=kv_pos, kv_valid=valid, window=window,
+                      logit_softcap=logit_softcap)
 
 
 def write_kv(cache: dict, k: torch.Tensor, v: torch.Tensor, cache_position: int) -> None:
@@ -224,53 +241,24 @@ def apply_attention(
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
-    new_cache = None
     if cache is not None:
-        S = x.shape[1]
         write_kv(cache, k, v, cache_position)
-        ck, cv = cache["k"], cache["v"]
-        new_cache = cache
-        if (cfg.attention_impl == "flash" and isinstance(cache_position, int)
-                and cache_position == 0):
-            # Prefill into an empty cache.  The reference attends over the
-            # whole cache with kv_valid = kv_pos < S (attention.py:149-166);
-            # at cache_position 0 the positions are arange(S) and causality
-            # already excludes every key at or past S, whose scores would be
-            # -1e30 and add exactly 0.  So causal attention over the fresh
-            # K/V is the same function, and it runs through the kernel.
-            out = kernel_ops.flash_attention(
-                q, k, v, causal=True, window=window,
-                logit_softcap=cfg.attn_logit_softcap,
-            )
-        else:
-            T = ck.shape[1]
-            kv_pos = torch.arange(T, device=x.device)
-            valid = (kv_pos[None, :] < cache_position + S).expand(x.shape[0], T)
-            out = attend_xla(
-                q, ck, cv,
-                causal=True,
-                q_positions=positions,
-                kv_positions=kv_pos,
-                kv_valid=valid,
-                window=window,
-                logit_softcap=cfg.attn_logit_softcap,
-            )
+    if cache is None or (cfg.attention_impl == "flash" and isinstance(cache_position, int)
+                         and cache_position == 0):
+        # Without a cache the positions are arange(S) (every caller's), which
+        # the flash route and the xla route's training kernels take them to
+        # be.  A prefill into an empty cache under flash: the reference
+        # attends over the whole cache with kv_valid = kv_pos < S
+        # (attention.py:149-166), but at position 0 causality already
+        # excludes every key at or past S (a score of -1e30 adds exactly 0),
+        # so causal attention over the fresh K/V is the same function.
+        out = attend(cfg, q, k, v, causal=causal or cache is not None, q_positions=positions,
+                     kv_positions=positions, window=window, logit_softcap=cfg.attn_logit_softcap)
     else:
-        # positions are arange(S) here (every caller's), which the flash
-        # route and the xla route's training kernels take them to be
-        out = attend(
-            cfg, q, k, v,
-            causal=causal,
-            q_positions=positions,
-            kv_positions=positions,
-            window=window,
-            logit_softcap=cfg.attn_logit_softcap,
-        )
+        out = attend_cache(q, cache, positions, cache_position, window=window,
+                           logit_softcap=cfg.attn_logit_softcap)
     out = shard(out, "batch", "seq", "heads", "head_dim")
-    return L.apply_dense(params["wo"], _merge_heads(out)), new_cache
-
-
-MLA_SCORES_BYTES = 1 << 30  # the f32 scores of one slice of rows in apply_mla
+    return L.apply_dense(params["wo"], _merge_heads(out)), cache
 
 
 def init_mla(cfg: ModelConfig):
@@ -299,10 +287,13 @@ def apply_mla(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
         q_pe and the one k_pe that every head shares rotated (split-half RoPE);
         softmax((q_nope k_nope + q_pe k_pe) / sqrt(nope + rope)) v, then W_o.
 
-    Where :func:`fused_causal` holds (training's bf16 CUDA tensors at q.k 192
-    and v 128), the scores run once over the whole batch in the training
-    kernels (:func:`repro_torch.kernels.ops.causal_attention`); anything else
-    on the einsum route (:func:`attend_xla`), a slice of rows at a time."""
+    The scores go through :func:`attend` once over the whole batch: on the
+    ``xla`` route, training's bf16 CUDA tensors (q.k 192, v 128) run the
+    training kernels (:func:`repro_torch.kernels.ops.causal_attention`),
+    anything else :func:`attend_xla`.  Under ``attention_impl="flash"`` they
+    take the flash route, as every attention does, which refuses them: the
+    flash kernel takes one width up to 128 for q, k and v, and has no
+    backward."""
     H, r = cfg.n_heads, cfg.kv_lora_rank
     nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     with tracing.span("attention.mla"):
@@ -316,18 +307,8 @@ def apply_mla(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     k_pe = L.apply_rope(k_pe.unsqueeze(-2), positions, cfg.rope_theta)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:-1], rope)], dim=-1)
-    kw = dict(causal=True, q_positions=positions, kv_positions=positions, window=window,
-              logit_softcap=cfg.attn_logit_softcap)
-    if fused_causal(q, k, v, **kw):
-        out = kernel_ops.causal_attention(q, k, v)
-    else:
-        # the f32 scores a slice of rows at a time, each slice's under
-        # MLA_SCORES_BYTES: the temporaries of one slice live at once, not of
-        # the whole batch (some 20 GB at 16 rows of 2048)
-        B, S = q.shape[0], q.shape[1]
-        rows = max(1, MLA_SCORES_BYTES // (4 * H * S * S))
-        out = torch.cat([attend_xla(q[i:i + rows], k[i:i + rows], v[i:i + rows], **kw)
-                         for i in range(0, B, rows)])
+    out = attend(cfg, q, k, v, causal=True, q_positions=positions, kv_positions=positions,
+                 window=window, logit_softcap=cfg.attn_logit_softcap)
     return L.apply_dense(params["wo"], _merge_heads(out))
 
 

@@ -13,9 +13,10 @@ experts), through ``local_map``.  One group (at most 2048 tokens, every
 decode step) cannot take the data axes; its expert work is split over them
 as XLA splits the reference's (:func:`_experts_split`).
 
-``use_gmm=True`` runs the expert FFN through the grouped-matmul kernel
-(:func:`repro_torch.kernels.ops.moe_expert_mlp`).  As in the reference, no
-model path sets it: ``apply_block`` calls :func:`apply_moe` without it.
+Every product by an expert weight is :func:`_expert_product`: an einsum, or
+with ``use_gmm=True`` the grouped-matmul kernel
+(:func:`repro_torch.kernels.ops.gmm`).  As in the reference, no model path
+sets it: ``apply_block`` calls :func:`apply_moe` without it.
 
 ``dispatch="dropless"`` (DeepSeek-V3's layer, :func:`apply_dropless`) drops
 nothing: each held expert gathers the rows routed to it, and its gated output
@@ -169,10 +170,10 @@ def apply_moe(
     combine = combine.to(x.dtype)
     with tracing.span("moe.experts"):
         if sharding.is_dtensor(xg):
-            out = _experts_per_shard(cfg, use_gmm, xg, dispatch_t, combine, *experts,
+            out = _experts_per_shard(use_gmm, xg, dispatch_t, combine, *experts,
                                      rows=B if groups == 1 else None)
         else:
-            out = _experts(cfg, use_gmm, xg, dispatch_t, combine, *experts)
+            out = _experts(use_gmm, xg, dispatch_t, combine, *experts)
     return out.reshape(B, S, D), aux
 
 
@@ -188,25 +189,15 @@ def _combine(combine, expert_out):
     return torch.einsum("gtec,gecd->gtd", combine, expert_out)
 
 
-def _experts(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, w_gate, w_up, w_down):
-    """Dispatch, the expert FFN and the weighted combine: [G,T,D] -> [G,T,D]."""
+def _experts(use_gmm: bool, xg, dispatch_t, combine, w_gate, w_up, w_down):
+    """Dispatch, the expert FFN and the weighted combine of plain tensors
+    (:func:`_experts_per_shard` maps it over a mesh's ranks): [G,T,D] -> [G,T,D]."""
     expert_in = _dispatch(dispatch_t, xg)
-
-    if use_gmm:
-        weights = {"gate": w_gate, "up": w_up, "down": w_down}
-        expert_out = kernel_ops.moe_expert_mlp(expert_in, weights, cfg)
-    else:
-        w_gate, w_up, w_down = (w.to(xg.dtype) for w in (w_gate, w_up, w_down))
-        h = F.silu(torch.einsum("gecd,edf->gecf", expert_in, w_gate))
-        h = h * torch.einsum("gecd,edf->gecf", expert_in, w_up)
-        h = shard(h, "batch", "experts", "expert_capacity", "mlp")
-        expert_out = torch.einsum("gecf,efd->gecd", h, w_down)
-    expert_out = shard(expert_out, "batch", "experts", None, "embed")
-
-    return _combine(combine, expert_out)
+    weights = [w.to(xg.dtype) for w in (w_gate, w_up, w_down)]
+    return _combine(combine, _swiglu(use_gmm, expert_in, *weights))
 
 
-def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine, *weights,
+def _experts_per_shard(use_gmm: bool, xg, dispatch_t, combine, *weights,
                        rows: int | None = None):
     """:func:`_experts` of DTensors, per rank on the slice of the expert FFN
     that the placement of its hidden ``h`` [G,E,C,F] gives it under the
@@ -231,7 +222,7 @@ def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine,
                                  "batch", "experts", "expert_capacity", "mlp")
     split = sharding.untaken_axes(hp, mesh, "batch", xg.shape[-1], rows) if rows else []
     if split:
-        return _experts_split(cfg, use_gmm, hp, split, xg, dispatch_t, combine, *weights)
+        return _experts_split(use_gmm, hp, split, xg, dispatch_t, combine, *weights)
     dp = sharding.follow(hp, {0: 0, 1: 2})
     xp = sharding.follow(hp, {0: 0})
     w_in, w_out = sharding.follow(hp, {1: 0, 3: 2}), sharding.follow(hp, {1: 0, 3: 1})
@@ -239,7 +230,7 @@ def _experts_per_shard(cfg: ModelConfig, use_gmm: bool, xg, dispatch_t, combine,
     d_grad = sharding.grad_placements(hp, {0: 0, 1: 2}, {3})
     in_grad, out_grad = (sharding.grad_placements(hp, {1: 0, 3: d}, {0}) for d in (2, 1))
     out = x_grad  # the output is laid out as xg's gradient is
-    return sharding.local_map(functools.partial(_experts, cfg, use_gmm), out,
+    return sharding.local_map(functools.partial(_experts, use_gmm), out,
                               (xp, dp, dp, w_in, w_in, w_out), mesh,
                               in_grad_placements=(x_grad, d_grad, d_grad,
                                                   in_grad, in_grad, out_grad))(
@@ -256,8 +247,14 @@ def _expert_product(use_gmm: bool, x, w):
     return torch.einsum("geck,ekn->gecn", x, w.to(x.dtype))
 
 
-def _experts_split(cfg: ModelConfig, use_gmm: bool, hp: tuple, split: list[int], xg,
-                   dispatch_t, combine, w_gate, w_up, w_down):
+def _swiglu(use_gmm: bool, x, w_gate, w_up, w_down):
+    """Each expert's SwiGLU of its rows x [G,E,C,D] -> [G,E,C,D]."""
+    h = F.silu(_expert_product(use_gmm, x, w_gate)) * _expert_product(use_gmm, x, w_up)
+    return _expert_product(use_gmm, h, w_down)
+
+
+def _experts_split(use_gmm: bool, hp: tuple, split: list[int], xg, dispatch_t, combine,
+                   w_gate, w_up, w_down):
     """:func:`_experts_per_shard` of one group [1,T,...] where the mesh dims
     ``split`` would take the groups but cannot: their ranks hold every token
     of the group, and split its work as XLA splits the reference's, in four
@@ -422,7 +419,7 @@ def apply_dropless(params, cfg: ModelConfig, x: torch.Tensor, balance: Balance |
         widest = max(rows)
         if widest:
             # the held rows, in expert order, each to its slot of a zero-padded
-            # slab [held, widest, D]: three batched products run every held
+            # slab [1, held, widest, D]: three batched products run every held
             # expert at once, where products an expert at a time would run at
             # the pace the host launches them
             tokens = mine // k
@@ -430,10 +427,9 @@ def apply_dropless(params, cfg: ModelConfig, x: torch.Tensor, balance: Balance |
             first = torch.cumsum(counts[lo:lo + held], 0) - counts[lo:lo + held]
             slot = local * widest + torch.arange(len(mine), device=x.device) - first[local]
             slab = xf.new_zeros(held * widest, D).index_copy(0, slot, s.grad_in(xf)[tokens])
-            slab = slab.view(held, widest, D)
-            w = {n: params["experts"][n].to(x.dtype) for n in ("gate", "up", "down")}
-            h = F.silu(torch.bmm(slab, w["gate"])) * torch.bmm(slab, w["up"])
-            y = torch.bmm(h, w["down"]).reshape(held * widest, D)[slot]
+            weights = [params["experts"][n].to(x.dtype) for n in ("gate", "up", "down")]
+            y = _swiglu(False, slab.view(1, held, widest, D), *weights)
+            y = y.reshape(held * widest, D)[slot]
             y = y.float() * gates.reshape(-1)[mine, None]
             out = out.index_add(0, tokens, s.grad_out(y))
     return out.to(x.dtype).reshape(B, S, D), aux

@@ -234,8 +234,9 @@ def forward_lm(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def prefill_lm(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
                pixel_embeds=None):
-    """Prefill: forward + build the stacked KV cache.  Returns (logits, cache)
-    with logits of the last position only."""
+    """Prefill: forward + build the stacked KV cache, one slot a block in
+    :func:`_lm_blocks`' order.  Returns (logits, cache) with logits of the
+    last position only."""
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens, pixel_embeds)
     positions = torch.arange(S, device=tokens.device)
@@ -248,8 +249,8 @@ def prefill_lm(params, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
         return x
 
     body = _remat(body, cfg)
-    for i in range(cfg.n_layers):
-        x = body(x, layer_params(params["blocks"], i), layer_params(caches, i), i)
+    for i, block_params in enumerate(_lm_blocks(params, cfg)):
+        x = body(x, block_params, layer_params(caches, i), i)
     return lm_logits(params, cfg, x[:, -1:, :]), caches
 
 
@@ -260,11 +261,9 @@ def decode_lm(params, cfg: ModelConfig, tokens_new: torch.Tensor, caches,
     x = embed_tokens(params, cfg, tokens_new)
     positions = torch.full((tokens_new.shape[0], 1), position, dtype=torch.int32,
                            device=tokens_new.device)
-    for i in range(cfg.n_layers):
-        x, _, _ = apply_block(
-            layer_params(params["blocks"], i), cfg, x, positions,
-            cache=layer_params(caches, i), cache_position=position, layer=i,
-        )
+    for i, block_params in enumerate(_lm_blocks(params, cfg)):
+        x, _, _ = apply_block(block_params, cfg, x, positions, cache=layer_params(caches, i),
+                              cache_position=position, layer=i)
     return lm_logits(params, cfg, x), caches
 
 
@@ -352,7 +351,6 @@ def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
     delta = (h @ lora_slice["qkv_a"].to(h.dtype)) @ lora_slice["qkv_b"].to(h.dtype)
     dq, dk, dv = torch.split(delta, [nq, nk, nk], dim=-1)
     ap = shared["attn"]
-    B, S = h.shape[0], h.shape[1]
     q = attn._split_heads(_plus_lora(L.apply_dense(ap["wq"], h), dq), cfg.n_heads, hd)
     k = attn._split_heads(_plus_lora(L.apply_dense(ap["wk"], h), dk), cfg.n_kv_heads, hd)
     v = attn._split_heads(_plus_lora(L.apply_dense(ap["wv"], h), dv), cfg.n_kv_heads, hd)
@@ -360,12 +358,7 @@ def _apply_shared_with_lora(shared, lora_slice, cfg: ModelConfig, x, positions,
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
         attn.write_kv(cache, k, v, cache_position)
-        ck, cv = cache["k"], cache["v"]
-        T = ck.shape[1]
-        kv_pos = torch.arange(T, device=x.device)
-        valid = (kv_pos[None, :] < cache_position + S).expand(B, T)
-        out = attn.attend_xla(q, ck, cv, causal=True, q_positions=positions,
-                              kv_positions=kv_pos, kv_valid=valid)
+        out = attn.attend_cache(q, cache, positions, cache_position)
     else:
         out = attn.attend_xla(q, k, v, causal=True, q_positions=positions,
                               kv_positions=positions)

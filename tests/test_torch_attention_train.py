@@ -236,11 +236,49 @@ def _routes(q, k, v, **kw):
     return calls["fused"], calls["plain"]
 
 
-def _fake_cuda(B, S, H, K, D, dtype=torch.bfloat16, T=None, DV=None):
+def _fake_cuda(B, S, H, K, D, dtype=torch.bfloat16, T=None, DV=None, device="cuda"):
     T = S if T is None else T
-    return (torch.empty(B, S, H, D, dtype=dtype, device="cuda"),
-            torch.empty(B, T, K, D, dtype=dtype, device="cuda"),
-            torch.empty(B, T, K, DV or D, dtype=dtype, device="cuda"))
+    return (torch.empty(B, S, H, D, dtype=dtype, device=device),
+            torch.empty(B, T, K, D, dtype=dtype, device=device),
+            torch.empty(B, T, K, DV or D, dtype=dtype, device=device))
+
+
+# what causal_attention_takes is given beside fake bf16 CUDA self-attention
+# (B 2, S 64, H 4, K 2), and whether it takes it
+TAKES = {
+    "dims_64_64": (dict(D=64), True),
+    "dims_128_128": (dict(D=128), True),
+    "dims_192_128": (dict(D=192, DV=128), True),
+    "float32": (dict(D=128, dtype=torch.float32), False),
+    "cpu": (dict(D=128, device="cpu"), False),
+    "dtensor": (dict(D=128, dtensor=True), False),
+    "cross_length": (dict(D=128, T=96), False),
+    "dims_192_192": (dict(D=192, DV=192), False),
+    "dims_96_128": (dict(D=96, DV=128), False),
+}
+
+
+@pytest.mark.parametrize("case", list(TAKES))
+def test_causal_attention_takes_what_the_kernels_take(case):
+    """``ops.causal_attention_takes``: plain (not DTensor) bf16 CUDA tensors,
+    S = T, (q.k, v) head dims in ``ops.CAUSAL_HEAD_DIMS``.  The DTensor is
+    one of CUDA tensors on a one-rank CUDA mesh, so that only its being a
+    DTensor is refused."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch import dryrun
+
+    shape, takes = TAKES[case]
+    shape = dict(shape)
+    dtensor = shape.pop("dtensor", False)
+    with dryrun.fake_world(1) if dtensor else contextlib.nullcontext(), FakeTensorMode():
+        qkv = _fake_cuda(2, 64, 4, 2, **shape)
+        if dtensor:
+            mesh = DeviceMesh("cuda", [0], _init_backend=False)
+            qkv = [DTensor.from_local(t, mesh, (Replicate(),), run_check=False) for t in qkv]
+            assert all(t.device.type == "cuda" for t in qkv)
+        assert ops.causal_attention_takes(*qkv) == takes
 
 
 def test_positions_other_than_one_shared_1d_tensor_keep_attend_xla():
@@ -320,13 +358,12 @@ _MLA_CFG = configs.get("moonlight-16b-a3b", smoke=True).replace(
     qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
 
 
-@pytest.mark.parametrize("device,want", [("cuda", (1, 0)), ("cpu", (0, 3))])
+@pytest.mark.parametrize("device,want", [("cuda", (1, 0)), ("cpu", (0, 1))])
 def test_latent_attention_of_cuda_bf16_takes_the_kernels_once(device, want, monkeypatch):
-    """``apply_mla`` at q.k 192 and v 128, on bf16 CUDA tensors (fake ones),
-    sends its scores through the training kernels' op once over the whole
-    batch of 3 rows, with no slice loop, though ``MLA_SCORES_BYTES`` would cut
-    the einsum route into one row a slice; on CPU tensors, which the kernels
-    do not take, the einsum route runs its 3 slices."""
+    """``apply_mla`` at q.k 192 and v 128 goes through ``attend`` once over
+    the whole batch of 3 rows: on bf16 CUDA tensors (fake ones) to the
+    training kernels' op, on CPU tensors, which the kernels do not take, to
+    one attend_xla call."""
     from torch.utils._pytree import tree_map
 
     from repro_torch.models.transformer import layer_params
@@ -335,20 +372,22 @@ def test_latent_attention_of_cuda_bf16_takes_the_kernels_once(device, want, monk
     p = layer_params(Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")["blocks"],
                      0)["attn"]
     B, S = 3, 64
-    monkeypatch.setattr(attn, "MLA_SCORES_BYTES", 4 * cfg.n_heads * S * S)
-    calls = {"fused": 0, "plain": 0}
-    plain = attn.attend_xla
+    calls = {"attend": 0, "fused": 0, "plain": 0}
+    plain, attend = attn.attend_xla, attn.attend
 
     def count_fused(q, k, v):  # the op's output; autograd on fake tensors would need a card
         calls["fused"] += 1
         return q.new_empty(q.shape[:-1] + (v.shape[-1],))
 
-    def count_plain(*a, **kw):
-        calls["plain"] += 1
-        return plain(*a, **kw)
+    def count(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
 
     monkeypatch.setattr(ops, "causal_attention", count_fused)
-    monkeypatch.setattr(attn, "attend_xla", count_plain)
+    monkeypatch.setattr(attn, "attend_xla", count("plain", plain))
+    monkeypatch.setattr(attn, "attend", count("attend", attend))
     # RoPE makes a constant on the device, which a fake CUDA tensor cannot be
     # made from here; the route does not depend on it
     monkeypatch.setattr(L, "apply_rope", lambda x, positions, theta: x)
@@ -357,7 +396,91 @@ def test_latent_attention_of_cuda_bf16_takes_the_kernels_once(device, want, monk
         x = torch.zeros(B, S, cfg.d_model, dtype=torch.bfloat16, device=device)
         out = attn.apply_mla(pc, cfg, x, torch.arange(S, device=device))
     assert (calls["fused"], calls["plain"]) == want
+    assert calls["attend"] == 1
     assert out.shape == (B, S, cfg.d_model) and out.dtype == torch.bfloat16
+
+
+SITES = ("apply_attention", "flash_prefill", "apply_mla")
+
+
+@pytest.mark.parametrize("site", SITES)
+def test_each_self_attention_site_goes_through_attend_once(site, monkeypatch):
+    """Each self-attention site runs one ``attend`` call a layer, and on the
+    CPU that call returns, bit for bit, what the site's own call returned
+    before it went through ``attend``: attend_xla over the whole batch
+    (``apply_attention`` without a cache, ``apply_mla``), or the flash entry
+    point over the fresh K/V (a prefill into an empty cache under flash:
+    causal, the layer's window and softcap, no cache mask)."""
+    from repro_torch.models.transformer import layer_params
+
+    arch = "moonlight-16b-a3b" if site == "apply_mla" else "internlm2-1.8b"
+    cfg = configs.get(arch, smoke=True).replace(
+        attention_impl="flash" if site == "flash_prefill" else "xla")
+    p = layer_params(Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")["blocks"],
+                     0)["attn"]
+    B, S = 2, 24
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(S)
+    calls = []
+    attend = attn.attend
+
+    def spy(cfg, q, k, v, **kw):
+        out = attend(cfg, q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    monkeypatch.setattr(attn, "attend", spy)
+    with torch.no_grad():
+        if site == "apply_mla":
+            attn.apply_mla(p, cfg, x, pos, window=cfg.sliding_window)
+        elif site == "apply_attention":
+            attn.apply_attention(p, cfg, x, pos, window=cfg.sliding_window)
+        else:
+            cache = layer_params(attn.init_kv_cache(cfg, 1, B, S + 8, torch.float32, "cpu"), 0)
+            attn.apply_attention(p, cfg, x, pos, cache=cache, cache_position=0,
+                                 window=cfg.sliding_window)
+        assert len(calls) == 1
+        q, k, v, kw, got = calls[0]
+        assert k.shape[1] == S and kw.get("kv_valid") is None and kw["causal"]
+        if site == "flash_prefill":
+            want = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                                       logit_softcap=cfg.attn_logit_softcap)
+        else:
+            want = attn.attend_xla(q, k, v, causal=True, q_positions=pos, kv_positions=pos,
+                                   window=cfg.sliding_window,
+                                   logit_softcap=cfg.attn_logit_softcap)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_latent_attention_under_flash_is_refused(mode, monkeypatch):
+    """Under ``attention_impl="flash"`` ``apply_mla`` takes the flash route,
+    as every attention does, and is refused there: training for want of a
+    backward kernel; evaluation because the flash kernel takes one width up
+    to 128 for q, k and v (on the CPU its plain version cannot shape v's
+    narrower output either)."""
+    from repro_torch.models.transformer import layer_params
+
+    cfg = _MLA_CFG.replace(attention_impl="flash")
+    p = layer_params(Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")["blocks"],
+                     0)["attn"]
+    x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    widths = []
+    flash = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        widths.append((q.shape[-1], v.shape[-1]))
+        return flash(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    if mode == "train":
+        x.requires_grad_()
+        with pytest.raises(NotImplementedError, match="no backward kernel"):
+            attn.apply_mla(p, cfg, x, torch.arange(16))
+    else:
+        with torch.no_grad(), pytest.raises(RuntimeError):
+            attn.apply_mla(p, cfg, x, torch.arange(16))
+    assert widths == [(192, 128)]
 
 
 def test_dtensors_keep_attend_xla():

@@ -20,8 +20,7 @@ to the JAX package):
 * prefill under ``"flash"`` on a (1, 4) mesh, where SMOKE internlm2's 2 kv
   heads do not divide the model axis and stay whole on every rank, against
   unsharded prefill, and one decode step after it; the kernels' entry points
-  (``mamba_scan``, ``moe_expert_mlp``, ``gmm``) on DTensors against whole
-  tensors;
+  (``mamba_scan``, ``gmm``) on DTensors against whole tensors;
 * SMOKE whisper-medium's prefill under ``"flash"`` (its encoder
   non-causal) on (2, 2), on (1, 4) and, with 2 heads that do not divide
   the model axis, on (1, 4), against unsharded prefill: the logits, the
@@ -438,18 +437,15 @@ def _entry_points_on(mesh) -> dict:
     r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
     xh, dt, Bm, Cm = r(2, 16, 8, 4), torch.rand(2, 16, 8, generator=gen), r(2, 16, 6), r(2, 16, 6)
     A = -torch.rand(8, generator=gen)
-    x, w = r(1, 8, 8, 16), {"gate": r(8, 16, 12), "up": r(8, 16, 12), "down": r(8, 12, 16)}
+    x, w = r(1, 8, 8, 16), r(8, 16, 12)
     out = {}
     with sh.use_rules(sh.PARAM_RULES, sh.ACT_RULES, mesh):
         d = lambda t, *axes: sh.distribute_input(t, *axes)  # noqa: E731
         got = ops.mamba_scan(d(xh, "batch", "seq", "ssm_heads", None), d(dt, "batch", "seq", None),
                              d(A, None), d(Bm, "batch", "seq", None), d(Cm, "batch", "seq", None), 8)
         out["mamba_scan"] = float((got.full_tensor() - ops.mamba_scan(xh, dt, A, Bm, Cm, 8)).abs().max())
-        dw = {k: d(v, None, None, None) for k, v in w.items()}
-        got = ops.moe_expert_mlp(d(x, "batch", "experts", None, None), dw, None)
-        out["moe_expert_mlp"] = float((got.full_tensor() - ops.moe_expert_mlp(x, w, None)).abs().max())
-        got = ops.gmm(d(x[0], "experts", None, None), dw["gate"])
-        out["gmm"] = float((got.full_tensor() - ops.gmm(x[0], w["gate"])).abs().max())
+        got = ops.gmm(d(x[0], "experts", None, None), d(w, None, None, None))
+        out["gmm"] = float((got.full_tensor() - ops.gmm(x[0], w)).abs().max())
     return out
 
 

@@ -140,11 +140,11 @@ def _experts(cfg, scale=0.1, seed=0):
             for name, shape in (("gate", (E, D, F)), ("up", (E, D, F)), ("down", (E, F, D)))}
 
 
-@pytest.mark.parametrize("port_fn", ["ops.moe_expert_mlp", "expert_mlp_ref"])
+@pytest.mark.parametrize("port_fn", ["moe._swiglu", "expert_mlp_ref"])
 @pytest.mark.parametrize("grouped", [True, False], ids=["4d", "3d"])
 def test_moe_expert_mlp_matches_jax(grouped, port_fn):
-    """The SwiGLU expert FFN of three grouped matmuls; [G,E,C,D] (G 2) and the
-    reference's squeezed [E,C,D]."""
+    """The SwiGLU expert FFN of three grouped matmuls (the MoE layer's, with
+    ``use_gmm``); [G,E,C,D] (G 2) and the reference's squeezed [E,C,D]."""
     cfg = configs.get("mixtral-8x7b", smoke=True)
     shape = ((2,) if grouped else ()) + (cfg.moe.n_experts, 16, cfg.d_model)
     x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
@@ -152,8 +152,10 @@ def test_moe_expert_mlp_matches_jax(grouped, port_fn):
     jcfg = jax_configs.get("mixtral-8x7b", smoke=True)
     jx, jexperts = jnp.asarray(x), {k: jnp.asarray(v) for k, v in experts.items()}
     texperts = {k: torch.from_numpy(v) for k, v in experts.items()}
-    if port_fn == "ops.moe_expert_mlp":
-        out = ops.moe_expert_mlp(torch.from_numpy(x), texperts, cfg)
+    if port_fn == "moe._swiglu":
+        tx = torch.from_numpy(x) if grouped else torch.from_numpy(x)[None]
+        out = moe._swiglu(True, tx, *(texperts[n] for n in ("gate", "up", "down")))
+        out = out if grouped else out[0]
         expected = jax_ops.moe_expert_mlp(jx, jexperts, jcfg)
     else:
         out = ref.expert_mlp_ref(torch.from_numpy(x), texperts)
@@ -403,6 +405,33 @@ def test_sliding_window_runs_in_prefill_and_decode():
             steps.append(_np(tl))
         out[window] = np.stack(steps)
     assert np.abs(out[32] - out[None]).max() > 1e-2
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_prefill_and_decode_walk_a_leading_dense_stack(impl):
+    """An MoE stack behind a leading dense layer (``first_dense_layers``, as
+    GLM-4.5 and DeepSeek-V3 lay theirs out) with GQA attention: prefill and 4
+    decode steps walk the blocks ``forward_lm`` walks, dense first, one cache
+    slot a block, and give its logits on the same tokens.  The capacity
+    drops nothing, so that the routing groups' sizes do not matter."""
+    base = configs.get("mixtral-8x7b", smoke=True)
+    cfg = base.replace(
+        n_layers=3, first_dense_layers=1, dense_d_ff=96, compute_dtype="float32",
+        attention_impl=impl, moe=dataclasses.replace(base.moe, capacity_factor=2.0))
+    assert cfg.n_kv_heads < cfg.n_heads
+    params = Model(cfg).init(torch.Generator("cpu").manual_seed(0), device="cpu")
+    redraw_params_(params, seed=13)
+    assert params["dense_blocks"]["mlp"]["up"]["w"].shape[0] == 1
+    assert params["blocks"]["moe"]["router"]["w"].shape[0] == 2
+    tokens = torch.from_numpy(_tokens(cfg, (B, S + 4))).long()
+    with torch.no_grad():
+        want, _ = tfm.forward_lm(params, cfg, tokens)
+        got, cache = tfm.prefill_lm(params, cfg, tokens[:, :S], S + 4)
+        assert cache["k"].shape[0] == cfg.n_layers
+        torch.testing.assert_close(got[:, 0], want[:, S - 1], **TOL)
+        for pos in range(S, S + 4):
+            got, cache = tfm.decode_lm(params, cfg, tokens[:, pos:pos + 1], cache, pos)
+            torch.testing.assert_close(got[:, 0], want[:, pos], **TOL)
 
 
 def _serve(engine_cls, accum_cls, model, params, prompts, eos, **kw):

@@ -282,22 +282,6 @@ def test_spans_and_counters_of_a_train_step():
         float(state.buffers["router_bias"].abs().max()))
 
 
-def test_latent_attention_in_row_slices_equals_the_whole_batch(monkeypatch):
-    """``apply_mla`` forms the einsum route's scores a slice of rows at a time
-    (each slice's under ``MLA_SCORES_BYTES``): rows are independent, so one
-    row a slice gives the whole batch's output to f32 rounding."""
-    from repro_torch.models import attention
-    from repro_torch.models.transformer import layer_params
-
-    cfg = _cfg()
-    p = layer_params(_params(cfg)["blocks"], 0)["attn"]
-    x, pos = _layer_inputs(cfg), torch.arange(S)
-    whole = attention.apply_mla(p, cfg, x, pos)
-    monkeypatch.setattr(attention, "MLA_SCORES_BYTES", 4 * cfg.n_heads * S * S)
-    sliced = attention.apply_mla(p, cfg, x, pos)
-    torch.testing.assert_close(sliced, whole, rtol=1e-5, atol=1e-5)
-
-
 def test_serving_entry_points_refuse_latent_attention():
     cfg = _cfg()
     model = Model(cfg)

@@ -217,10 +217,12 @@ def test_unported_family_raises():
 def test_every_config_builds_forwards_prefills_and_decodes(arch):
     """Model(cfg) for every config of the registry, at SMOKE size on the CPU:
     init, forward, prefill and two decode steps, all finite and of the
-    reference's shapes.  Latent attention (moonlight) has no KV cache yet:
-    its prefill raises."""
-    tcfg = configs.get(arch, smoke=True).replace(compute_dtype="float32",
-                                                 attention_impl="flash")
+    reference's shapes.  Latent attention (moonlight) runs on the xla route,
+    since the flash route refuses it, and has no KV cache yet: its prefill
+    raises."""
+    cfg = configs.get(arch, smoke=True)
+    tcfg = cfg.replace(compute_dtype="float32",
+                       attention_impl="xla" if cfg.kv_lora_rank else "flash")
     model = Model(tcfg)
     params = model.init(torch.Generator("cpu").manual_seed(0), device="cpu")
     batch = {"tokens": torch.from_numpy(_tokens(tcfg, (B, S))).long()}
